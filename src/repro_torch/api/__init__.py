@@ -1,0 +1,6 @@
+"""The driver API: registry, configs and the multi-step runner."""
+from .driver import (ALGORITHMS, DriverConfig, MGDDriver, as_mgd_config,
+                     driver, make_epoch, register_driver, state_step)
+
+__all__ = ["ALGORITHMS", "DriverConfig", "MGDDriver", "as_mgd_config",
+           "driver", "make_epoch", "register_driver", "state_step"]

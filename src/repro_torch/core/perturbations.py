@@ -1,0 +1,221 @@
+"""Perturbation generators for multiplexed gradient descent (paper §2.1, §3.4).
+
+PyTorch counterpart of ``repro.core.perturbations``.  Four families:
+``rademacher`` (counter-hashed ±Δθ, the default and the only one the
+fused path and the CUDA kernels regenerate), ``walsh``, ``sequential``
+and ``sinusoidal``.  Every generator is a pure function of (shapes, step,
+seed): no state, no global RNG.
+
+The murmur3 counter hash has two forms that agree bit for bit:
+
+* a **host-int** form (Python ints masked to 32 bits) for the per-leaf
+  seeds handed to kernels, so a step never reads the device;
+* a **tensor** form for the plain versions.  torch on the CPU has no
+  uint32 ``+``/``>>``/``*``, so it computes in int64 and masks with
+  ``& 0xFFFFFFFF``; the 32-bit product is split into 16-bit halves so no
+  int64 product overflows.
+
+Negative steps (the replay window can reach before step 0 under
+staleness) wrap as uint32, and ``step // tau_p`` is floor division, both
+as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from .utils import f32, leaf_meta, tree_flatten, tree_unflatten
+
+PERTURBATION_TYPES = ("rademacher", "walsh", "sequential", "sinusoidal")
+
+MASK = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+
+
+def _u32(x):
+    """uint32 view of a host int or an int64 tensor (two's-complement wrap)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & MASK
+    return int(x) & MASK
+
+
+def _mul32(a, b: int):
+    """``(a * b) mod 2**32`` for ``0 <= a, b < 2**32``."""
+    if not isinstance(a, torch.Tensor):
+        return (a * b) & MASK
+    lo = a & 0xFFFF
+    hi = a >> 16
+    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & MASK
+
+
+def _fmix32(x):
+    """murmur3 32-bit finalizer on a host int or an int64 tensor."""
+    x = _u32(x)
+    x = x ^ (x >> 16)
+    x = _mul32(x, _M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _M2)
+    x = x ^ (x >> 16)
+    return x
+
+
+def leaf_seed(seed, pert_step, leaf_id):
+    """32-bit per-(step, leaf) seed; host ints in, host int out (tensors
+    are accepted elementwise too)."""
+    s = (_mul32(_u32(seed), _GOLDEN) + _u32(leaf_id)) & MASK
+    s = _fmix32(s)
+    s = (s + _mul32(_u32(pert_step), _M1)) & MASK
+    return _fmix32(s)
+
+
+def rademacher_signs(lseed, idx: torch.Tensor) -> torch.Tensor:
+    """±1 float32 signs from a leaf seed and uint32 intra-leaf indices."""
+    h = _fmix32((_mul32(_u32(idx), _GOLDEN) + _u32(lseed)) & MASK)
+    return 1.0 - 2.0 * (h >> 31).to(torch.float32)
+
+
+def _walsh_signs(pert_step: int, idx: torch.Tensor) -> torch.Tensor:
+    """Walsh function W_{i+1}(t): (-1)^popcount((i+1) & t)."""
+    v = ((_u32(idx) + 1) & MASK) & _u32(pert_step)
+    v = v ^ (v >> 16)
+    v = v ^ (v >> 8)
+    v = v ^ (v >> 4)
+    v = v ^ (v >> 2)
+    v = v ^ (v >> 1)
+    parity = (v & 1).to(torch.float32)
+    return 1.0 - 2.0 * parity
+
+
+def _iota(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def generate(params_like, *, ptype, step: int, seed: int, dtheta: float,
+             tau_p: int = 1, total: Optional[int] = None):
+    """The perturbation pytree θ̃ for global timestep ``step`` (host int).
+
+    Only the leaves' shapes, dtypes and devices are read.  Bit-identical
+    to the reference for rademacher, walsh and sequential; sinusoidal
+    agrees to the rounding of ``sin``.
+    """
+    if ptype not in PERTURBATION_TYPES:
+        raise ValueError(f"unknown perturbation type {ptype!r}")
+    metas = leaf_meta(params_like)
+    total = total or sum(m[2] for m in metas)
+    step = int(step)
+    pert_step = step // int(tau_p)
+    leaves, treedef = tree_flatten(params_like)
+    out = []
+    for (lid, offset, n), leaf in zip(metas, leaves):
+        dev = leaf.device
+        if ptype == "rademacher":
+            sgn = rademacher_signs(leaf_seed(seed, pert_step, lid),
+                                   _iota(n, dev))
+            pert = sgn * f32(dtheta)
+        elif ptype == "walsh":
+            idx = (_iota(n, dev) + _u32(offset)) & MASK
+            pert = _walsh_signs(pert_step, idx) * f32(dtheta)
+        elif ptype == "sequential":
+            active = pert_step % int(total)
+            idx = _iota(n, dev) + offset
+            pert = (idx == active).to(torch.float32) * f32(dtheta)
+        else:   # sinusoidal
+            idx = torch.arange(n, dtype=torch.float32, device=dev) \
+                + f32(float(offset))
+            f = (idx + f32(1.0)) / f32(float(total + 1)) \
+                * f32(0.5 / float(tau_p))
+            t = f32(float(step))
+            pert = f32(dtheta) * torch.sin(f32(2.0 * math.pi) * f * t)
+        out.append(pert.reshape(leaf.shape).to(leaf.dtype))
+    return tree_unflatten(treedef, out)
+
+
+def generate_signs_only(params_like, *, step: int, seed: int,
+                        tau_p: int = 1):
+    """Rademacher ±1 signs (no Δθ), float32, one tensor per leaf."""
+    pert_step = int(step) // int(tau_p)
+    leaves, treedef = tree_flatten(params_like)
+    out = []
+    for (lid, _, n), leaf in zip(leaf_meta(params_like), leaves):
+        sgn = rademacher_signs(leaf_seed(seed, pert_step, lid),
+                               _iota(n, leaf.device))
+        out.append(sgn.reshape(leaf.shape))
+    return tree_unflatten(treedef, out)
+
+
+def rademacher_leaf(shape, dtype, lid: int, *, step: int, seed: int,
+                    dtheta: float, tau_p: int = 1, offset: int = 0,
+                    device=None) -> torch.Tensor:
+    """θ̃ for one leaf (or a row-major slice of a stacked leaf starting at
+    element ``offset``), bit for bit what ``generate`` emits for it."""
+    n = math.prod(shape)
+    pert_step = int(step) // int(tau_p)
+    idx = (_iota(n, device) + _u32(offset)) & MASK
+    sgn = rademacher_signs(leaf_seed(seed, pert_step, lid), idx)
+    return (sgn * f32(dtheta)).reshape(shape).to(dtype)
+
+
+def shifted_leaf_seed(lseed: int, offset_elems: int) -> int:
+    """Seed under which a kernel's local indices reproduce the global signs
+    of a row-major slice that starts ``offset_elems`` into the leaf:
+    fmix32((i+Δ)·G + s) == fmix32(i·G + (s + Δ·G))."""
+    return (_u32(lseed) + _mul32(_u32(offset_elems), _GOLDEN)) & MASK
+
+
+def apply_signed(leaf, theta, sign: float):
+    """``leaf + sign·θ̃`` in the materializing optimizer's float order:
+    ``tree_add`` for sign = +1, the f32 ``tree_axpy`` otherwise."""
+    if sign == 1.0:
+        return leaf + theta
+    return (leaf.float() + f32(sign) * theta.float()).to(leaf.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeCtx:
+    """Static descriptor of a fused probe evaluation.
+
+    ``signs`` is (1.0,) for a forward probe and (1.0, −1.0) for an
+    antithetic central pair (routed through the pair kernel).  ``impl``
+    selects the kernel route: ``"cuda"``, ``"ref"`` or ``None`` (by the
+    tensors' device).
+    """
+
+    signs: tuple = (1.0,)
+    dtheta: float = 1e-3
+    tau_p: int = 1
+    impl: Optional[str] = None
+
+    @property
+    def n_streams(self) -> int:
+        return len(self.signs)
+
+    @property
+    def is_pair(self) -> bool:
+        return self.signs == (1.0, -1.0)
+
+
+class Probe(NamedTuple):
+    """One probe evaluation: host step and seed plus the static context."""
+
+    step: int
+    seed: int
+    ctx: ProbeCtx
+
+    def lseed(self, leaf_id: int) -> int:
+        """Per-leaf kernel seed: the hash chain of ``generate``."""
+        return leaf_seed(self.seed, int(self.step) // int(self.ctx.tau_p),
+                         leaf_id)
+
+    def leaf_theta(self, shape, dtype, leaf_id: int, offset: int = 0,
+                   device=None) -> torch.Tensor:
+        """Materialized θ̃ for a (slice of a) leaf the kernels do not
+        cover (biases)."""
+        return rademacher_leaf(
+            shape, dtype, leaf_id, step=self.step, seed=self.seed,
+            dtheta=self.ctx.dtheta, tau_p=self.ctx.tau_p, offset=offset,
+            device=device)

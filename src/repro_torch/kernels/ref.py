@@ -1,0 +1,58 @@
+"""Plain PyTorch versions of the CUDA kernels.
+
+They materialize θ̃ (the thing the kernels avoid) with the same counter
+hash and row-major linear indexing, in the float order of
+``repro.kernels.ref``.  The CPU path runs them; ``chip_smoke.py`` holds
+each kernel against them on the card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.perturbations import MASK, rademacher_signs
+from repro_torch.core.utils import f32
+
+
+def leaf_signs(lseed, shape, device=None) -> torch.Tensor:
+    """±1 float32 signs for a whole leaf of ``shape`` (row-major indexing).
+
+    ``lseed`` is a host int or a 0-dim integer tensor holding the uint32
+    bit pattern (int32 two's complement is accepted)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return rademacher_signs(lseed, idx).reshape(shape)
+
+
+def perturbed_matmul_ref(x, w, lseed, *, dtheta, sign=1.0, out_dtype=None):
+    """y = x @ (W + sign·Δθ·signs), θ̃ materialized."""
+    signs = leaf_signs(lseed, w.shape, device=w.device)
+    wp = w.float() + f32(sign * dtheta) * signs
+    y = x.float() @ wp
+    return y.to(out_dtype or x.dtype)
+
+
+def perturbed_matmul_pair_ref(xp, xm, w, lseed, *, dtheta, out_dtype=None):
+    """(xp @ (W+θ̃), xm @ (W−θ̃)), two materialized matmuls sharing θ̃."""
+    yp = perturbed_matmul_ref(xp, w, lseed, dtheta=dtheta, sign=1.0,
+                              out_dtype=out_dtype)
+    ym = perturbed_matmul_ref(xm, w, lseed, dtheta=dtheta, sign=-1.0,
+                              out_dtype=out_dtype)
+    return yp, ym
+
+
+def _seed_list(lseeds):
+    if isinstance(lseeds, torch.Tensor):
+        return list((lseeds.to(torch.int64) & MASK).unbind(0))
+    return [int(s) & MASK for s in lseeds]
+
+
+def mgd_update_window_ref(w, lseeds, coefs, *, alpha, dtheta):
+    """Sequential-axpy window update in the kernel's association:
+    W ← W + α·((Δθ·sign_j)·coefs[j]) for j = 0..J−1 in order."""
+    w32 = w.float()
+    for j, ls in enumerate(_seed_list(lseeds)):
+        sgn = leaf_signs(ls, w.shape, device=w.device)
+        w32 = w32 + f32(alpha) * ((f32(dtheta) * sgn) * coefs[j])
+    return w32.to(w.dtype)

@@ -66,3 +66,9 @@ def _leak_sentinel():
         "leaked workers after the test session — some backend was not "
         "shut down (ChipFarm.close() / backend.shutdown() missing or "
         "unreachable):\n" + "\n".join(lines), pytrace=False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one "
+        "(run `python -m pytest -m gpu tests/test_torch_*.py` on the H100)")
