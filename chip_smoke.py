@@ -9,13 +9,20 @@ Phases, each fatal on failure (nothing is caught):
    power limit, compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel) and print ptxas's register,
    shared-memory and spill report.
-2. Kernels against their plain PyTorch versions on the card, at the main
+2. Kernels against their plain PyTorch versions on the card, at the MLP
    path's shapes (x [B,49]·W [49,4], x [B,4]·W [4,4], B ∈ {1, 8}), at a
-   ragged shape (5, 127, 257) and at one sizing shape, x [256,5120]·W
-   [5120,17408] f32.  Pass: f32 max relative error ≤ 1e-4, bf16 ≤ 0.15,
-   window update bitwise.  Each is timed with CUDA events after warm-up,
-   beside its plain version, a library yardstick (``torch.matmul`` /
-   ``Tensor.add_``) and the card's bound for the same work.
+   ragged shape (5, 127, 257), at one sizing shape, x [256,5120]·W
+   [5120,17408] f32, and at the transformer path's bf16 shapes, x
+   [512,5120]·W for W ∈ {[5120,5120], [5120,1024], [5120,17408],
+   [17408,5120], [5120,151936]}; the sum-then-subtract update
+   ``mgd_update`` at (128, 256, J=4), (96, 80, 7) and [5120, 17408] J=4,
+   f32 and bf16.  Pass: matmul max error ≤ 1e-4 of max|y| in f32 and
+   ≤ 2⁻⁶ (two bf16 ulps of max|y|) in bf16, and the unperturbed product
+   x·W must miss that limit (so a kernel that drops θ̃ cannot pass); both
+   updates bitwise.  Each is timed with CUDA events after warm-up, beside
+   its plain version, a library yardstick (``torch.matmul`` /
+   ``Tensor.add_`` / ``torch.sub``) and the card's bound for the same
+   work.
 3. Training, the main path: NIST7x7 49-4-4 with the paper's Δθ = 1e-2,
    η = 0.1, seed 1, fused, through ``repro_torch.driver`` and
    ``make_epoch``: central τ_θ = 1, forward τ_θ = 1 and central replay
@@ -27,6 +34,23 @@ Phases, each fatal on failure (nothing is caught):
 4. Where a main-path step's time goes: wall time per step, and device
    time per step and per kernel from ``torch.profiler`` (central and
    forward τ_θ = 1, 40 steps each).
+5. The transformer slice: Qwen3-14B at full width (d_model 5120, GQA
+   40/8 × 128, d_ff 17408, vocab 151936, bf16), 4 of its 40 layers, random
+   weights from seed 0, ``launch/train.py``'s batch 8 × seq 64, Δθ = η =
+   1e-2, fed by ``lm_sampler``: central τ_θ = 1, forward τ_θ = 1 and
+   central replay τ_θ = 4, 20 steps each, through ``repro_torch.driver``
+   and ``make_epoch``.  Each of the first 4 steps is probed again through
+   the plain route from the same params, state and batch; its C̃ must
+   agree within 2⁻¹¹ of that step's own cost, and two controls must miss
+   that limit: C̃ = 0 and the kernel route probing another seed's signs.
+   The remaining 16 steps are the main path: launch counters zeroed before
+   them must equal the path's counts (29 matmul launches a step, 13 window
+   updates an update); costs stay finite.  Then the
+   ``kernels.ops.mgd_update`` entry point updates every ndim ≥ 2 leaf once
+   (13 launches).  Printed: steps/s, peak device memory, and the device's
+   busy share under ``torch.profiler`` for central.
+6. Full depth: all 40 layers, central, 2 steps, kernel route only, with
+   its launch counts, peak device memory and seconds per step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither, when
@@ -36,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -47,20 +72,41 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3
+
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # per input type
 
 MAIN_SHAPES = [(1, 49, 4), (1, 4, 4), (8, 49, 4), (8, 4, 4)]
 RAGGED = (5, 127, 257)
 SIZING = (256, 5120, 17408)
+LM_TOKENS = 8 * 64          # launch/train.py's batch 8 × seq 64
+LM_SHAPES = [(LM_TOKENS, 5120, 5120), (LM_TOKENS, 5120, 1024),
+             (LM_TOKENS, 5120, 17408), (LM_TOKENS, 17408, 5120),
+             (LM_TOKENS, 5120, 151936)]
+LM_MAIN = (LM_TOKENS, 5120, 17408)          # gate/up: the kernels line
+UPDATE_SHAPES = [(128, 256, 4), (96, 80, 7), (5120, 17408, 4)]
 TRAIN_STEPS = 3000
 CT_CHECK_STEPS = 32
 CT_ATOL = 1e-5
-TOL = {"float32": 1e-4, "bfloat16": 0.15}
+# matmul max error / max|y|: f32 the reference tests' 1e-4; bf16 two ulps of
+# max|y| (each output is summed in f32 and rounded to bf16 once, so the two
+# versions land at most one ulp of an element, ≤ 2⁻⁷ of max|y|, apart)
+TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+LM_LAYERS = 4
+LM_STEPS = 20
+LM_CT_STEPS = 4
+# C̃ gate: |C̃ − C̃_plain| ≤ 2⁻¹¹·|C| for each step's own cost C.  The two
+# routes sum each logit in another f32 order before it is rounded to bf16,
+# so a logit may land one bf16 ulp (2⁻⁸ of itself) apart; the cost averages
+# 512 tokens, which shrinks such flips by about √512 ≈ 2⁴·⁵.
+LM_CT_REL = 2.0 ** -11
+LM_PER_LAYER = 7            # wq wk wv wo gate up down
+LM_WINDOW_LEAVES = 13       # ndim ≥ 2 leaves of the stacked param tree
 # substrings of each kernel's demangled name in a profiler trace
 KERNEL_KEYS = {"perturbed_matmul": "perturbed_matmul_kernel<1",
                "perturbed_matmul_pair": "perturbed_matmul_kernel<2",
-               "mgd_update_window": "mgd_update_window_kernel"}
+               "mgd_update_window": "mgd_update_window_kernel",
+               "mgd_update": "mgd_update_kernel<"}
 
 SOURCES = {
     "perturbed_matmul": ("src/repro_torch/kernels/csrc/perturbed_matmul.cu",
@@ -70,6 +116,8 @@ SOURCES = {
         "src/repro/kernels/perturbed_matmul.py:234"),
     "mgd_update_window": ("src/repro_torch/kernels/csrc/mgd_update.cu",
                           "src/repro/kernels/mgd_update.py:159"),
+    "mgd_update": ("src/repro_torch/kernels/csrc/mgd_update.cu",
+                   "src/repro/kernels/mgd_update.py:75"),
 }
 
 
@@ -135,8 +183,8 @@ def time_ms(fn, budget_ms: float = 60.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, dtype: str = "float32"):
+    t_ops = flops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
 
@@ -146,12 +194,22 @@ def rel_err(a, b) -> float:
             / max(1.0, b.float().abs().max().item()))
 
 
+def print_rec(name, r):
+    window = f" J={r['window']}" if "window" in r else ""
+    print(f"phase 2: {name} {r['shape']} {r['dtype']}{window}: "
+          f"{r['ms']:.4g} ms, plain {r['plain_ms']:.4g}, library "
+          f"{r['library_ms']:.4g}, bound {r['bound_ms']:.4g} "
+          f"({r['bound_by']}), max abs err {r['max_abs_err']:.3g}",
+          flush=True)
+
+
 def compare_kernels(torch, rt_ops, pert, dev):
     """Phase 2: every kernel against its plain version on the card."""
     gen = torch.Generator(device=dev).manual_seed(0)
     lseed = pert.leaf_seed(1, 0, 3)
     cases = [(s, "float32") for s in MAIN_SHAPES] + [
-        (RAGGED, "float32"), (RAGGED, "bfloat16"), (SIZING, "float32")]
+        (RAGGED, "float32"), (RAGGED, "bfloat16"), (SIZING, "float32")] + [
+        (s, "bfloat16") for s in LM_SHAPES]
     recs = {name: [] for name in SOURCES}
     windows_done = set()
     for (m, k, n), dname in cases:
@@ -170,63 +228,120 @@ def compare_kernels(torch, rt_ops, pert, dev):
             return rt_ops.perturbed_matmul_pair(x, xm, w, lseed, dtheta=1e-2,
                                                 impl=impl)
 
-        err = rel_err(single(), single("ref"))
+        y, r = single(), single("ref")
+        err = rel_err(y, r)
+        abs_1 = (y.float() - r.float()).abs().max().item()
         yp, ym = pair()
         rp, rm = pair("ref")
         err_p = max(rel_err(yp, rp), rel_err(ym, rm))
+        abs_2 = max((yp.float() - rp.float()).abs().max().item(),
+                    (ym.float() - rm.float()).abs().max().item())
+        # control: what a kernel that drops θ̃ would return
+        dropped = rel_err((x.float() @ w.float()).to(dt), r)
         torch.cuda.synchronize()
         for name, e in (("perturbed_matmul", err), ("perturbed_matmul_pair",
                                                      err_p)):
             if not e <= TOL[dname]:
                 fail(f"{name} {shape} {dname}: rel err {e} > {TOL[dname]}")
+        if not dropped > TOL[dname]:
+            fail(f"perturbed_matmul {shape} {dname}: the unperturbed product "
+                 f"is within the tolerance ({dropped} ≤ {TOL[dname]}), so "
+                 f"the check cannot see θ̃")
+        del y, r, yp, ym, rp, rm
         xs2 = torch.stack([x, xm])
-        b1 = bound(2.0 * m * k * n, (m * k + k * n + m * n) * esz)
-        b2 = bound(4.0 * m * k * n, (2 * m * k + k * n + 2 * m * n) * esz)
+        b1 = bound(2.0 * m * k * n, (m * k + k * n + m * n) * esz, dname)
+        b2 = bound(4.0 * m * k * n, (2 * m * k + k * n + 2 * m * n) * esz,
+                   dname)
         recs["perturbed_matmul"].append(dict(
-            shape=shape, dtype=dname, max_abs_err=(
-                single().float() - single("ref").float()).abs().max().item(),
-            max_rel_err=err, ms=time_ms(single),
-            plain_ms=time_ms(lambda: single("ref")),
+            shape=shape, dtype=dname, max_abs_err=abs_1, max_rel_err=err,
+            tol=TOL[dname], dropped_theta_rel_err=dropped, ms=time_ms(single), plain_ms=time_ms(lambda: single("ref")),
             library_ms=time_ms(lambda: torch.matmul(x, w)),
             bound_ms=b1[0], bound_by=b1[1]))
         recs["perturbed_matmul_pair"].append(dict(
-            shape=shape, dtype=dname, max_abs_err=max(
-                (yp.float() - rp.float()).abs().max().item(),
-                (ym.float() - rm.float()).abs().max().item()),
-            max_rel_err=err_p, ms=time_ms(pair),
-            plain_ms=time_ms(lambda: pair("ref")),
+            shape=shape, dtype=dname, max_abs_err=abs_2, max_rel_err=err_p,
+            tol=TOL[dname], dropped_theta_rel_err=dropped, ms=time_ms(pair), plain_ms=time_ms(lambda: pair("ref")),
             library_ms=time_ms(lambda: torch.matmul(xs2, w)),
             bound_ms=b2[0], bound_by=b2[1]))
-        for j in ((1, 4) if dname == "float32" else (4,)):
+        for name in ("perturbed_matmul", "perturbed_matmul_pair"):
+            print_rec(name, recs[name][-1])
+        del xs2
+        for j in ((1, 4) if dname == "float32" or m == LM_TOKENS else (4,)):
             if (k, n, dname, j) in windows_done:
                 continue
             windows_done.add((k, n, dname, j))
-            seeds = rt_ops.seeds_tensor(
-                [pert.leaf_seed(1, t, 3) for t in range(j)], dev)
-            coefs = torch.randn((j,), generator=gen, device=dev)
-
-            def window(impl=None):
-                return rt_ops.mgd_update_window(w, seeds, coefs, alpha=-0.1,
-                                                dtheta=1e-2, impl=impl)
-
-            got, want = window(), window("ref")
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"mgd_update_window {[k, n]} J={j} {dname}: not "
-                     f"bitwise equal to the plain version (max abs diff "
-                     f"{(got.float() - want.float()).abs().max().item()})")
-            w2 = w.clone()
-            d = torch.randn_like(w)
-            b3 = bound(2.0 * j * k * n, 2 * k * n * esz + 8 * j)
-            recs["mgd_update_window"].append(dict(
-                shape=[k, n], dtype=dname, window=j, max_abs_err=0.0,
-                max_rel_err=0.0, ms=time_ms(window),
-                plain_ms=time_ms(lambda: window("ref")),
-                library_ms=time_ms(lambda: w2.add_(d)),
-                bound_ms=b3[0], bound_by=b3[1]))
-        del x, xm, w, xs2
+            recs["mgd_update_window"].append(
+                compare_window(torch, rt_ops, pert, gen, w, j, dname, esz))
+        del x, xm, w
         torch.cuda.empty_cache()
+    for (k, n, j) in UPDATE_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            recs["mgd_update"].append(
+                compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname))
     return recs
+
+
+def compare_window(torch, rt_ops, pert, gen, w, j, dname, esz):
+    k, n = w.shape
+    seeds = rt_ops.seeds_tensor([pert.leaf_seed(1, t, 3) for t in range(j)],
+                                w.device)
+    coefs = torch.randn((j,), generator=gen, device=w.device)
+
+    def window(impl=None):
+        return rt_ops.mgd_update_window(w, seeds, coefs, alpha=-0.1,
+                                        dtheta=1e-2, impl=impl)
+
+    got, want = window(), window("ref")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"mgd_update_window {[k, n]} J={j} {dname}: not bitwise equal "
+             f"to the plain version (max abs diff "
+             f"{(got.float() - want.float()).abs().max().item()})")
+    del got, want
+    w2 = w.clone()
+    d = torch.randn_like(w)
+    b3 = bound(2.0 * j * k * n, 2 * k * n * esz + 8 * j)
+    rec = dict(shape=[k, n], dtype=dname, window=j, max_abs_err=0.0,
+               max_rel_err=0.0, ms=time_ms(window),
+               plain_ms=time_ms(lambda: window("ref")),
+               library_ms=time_ms(lambda: w2.add_(d)),
+               bound_ms=b3[0], bound_by=b3[1])
+    print_rec("mgd_update_window", rec)
+    return rec
+
+
+def compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname):
+    """The sum-then-subtract update against its plain version; the
+    yardstick is ``torch.sub`` of a materialized direction (the update's
+    bytes plus the direction's read, with no sign generation)."""
+    dt = getattr(torch, dname)
+    esz = torch.tensor([], dtype=dt).element_size()
+    w = torch.randn((k, n), generator=gen, device=dev).to(dt)
+    seeds = rt_ops.seeds_tensor([pert.leaf_seed(7, t, 0) for t in range(j)],
+                                dev)
+    coefs = torch.randn((j,), generator=gen, device=dev)
+
+    def update(impl=None):
+        return rt_ops.mgd_update(w, seeds, coefs, eta=0.1, dtheta=0.01,
+                                 impl=impl)
+
+    got, want = update(), update("ref")
+    torch.cuda.synchronize()
+    max_abs = (got.float() - want.float()).abs().max().item()
+    # same sum order and one rounded multiply-subtract in both versions
+    if not torch.equal(got, want):
+        fail(f"mgd_update {[k, n]} J={j} {dname}: not bitwise equal to the "
+             f"plain version (max abs diff {max_abs})")
+    del got, want
+    direction = torch.randn((k, n), generator=gen, device=dev).to(dt)
+    b4 = bound((2.0 * j + 2.0) * k * n, 2 * k * n * esz + 8 * j)
+    rec = dict(shape=[k, n], dtype=dname, window=j, max_abs_err=max_abs,
+               ms=time_ms(update), plain_ms=time_ms(lambda: update("ref")),
+               library_ms=time_ms(lambda: torch.sub(w, direction, alpha=10.0)),
+               bound_ms=b4[0], bound_by=b4[1])
+    print_rec("mgd_update", rec)
+    del w, direction
+    torch.cuda.empty_cache()
+    return rec
 
 
 def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
@@ -235,14 +350,14 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
     runs = {
         "central_tau1": (dict(mode="central"), dict(
             perturbed_matmul_pair=2 * steps, mgd_update_window=2 * steps,
-            perturbed_matmul=0)),
+            perturbed_matmul=0, mgd_update=0)),
         "forward_tau1": (dict(mode="forward"), dict(
             perturbed_matmul=2 * steps, mgd_update_window=2 * steps,
-            perturbed_matmul_pair=0)),
+            perturbed_matmul_pair=0, mgd_update=0)),
         "central_replay4": (dict(mode="central", replay=True, tau_theta=4),
                             dict(perturbed_matmul_pair=2 * steps,
                                  mgd_update_window=2 * (steps // 4),
-                                 perturbed_matmul=0)),
+                                 perturbed_matmul=0, mgd_update=0)),
     }
     xe, ye = tasks.nist7x7_batch(pipeline.sample_generator(99, 0, dev), 512)
 
@@ -305,11 +420,44 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
     return results, totals
 
 
+def device_profile(torch, run, steps):
+    """Device time per step and per kernel of ``run()`` (``steps`` steps)
+    from ``torch.profiler``'s CUDA activity, and the device's busy share:
+    that device time over the wall time of the same profiled steps.  No
+    CUDA activity in the trace means the profiler saw no device time: that
+    is reported as not measured (None), not as an idle device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev_evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev_evts)
+    top = sorted(dev_evts, key=lambda e: -e.self_device_time_total)
+    dev_ms = total_us / 1e3 / steps if total_us else None
+    return dict(
+        device_ms_per_step=dev_ms, profiled_wall_ms_per_step=wall_ms,
+        device_busy_share=dev_ms / wall_ms if dev_ms else None,
+        device_ops_per_step=sum(e.count for e in dev_evts) / steps,
+        top=[dict(name=e.key[:90], us_per_step=e.self_device_time_total
+                  / steps, calls_per_step=e.count / steps,
+                  us_per_call=e.self_device_time_total / max(1, e.count))
+             for e in top[:8]],
+        kernel_us_per_launch={
+            kname: e.self_device_time_total / e.count
+            for e in dev_evts for kname, key in KERNEL_KEYS.items()
+            if key in e.key and e.count})
+
+
 def profile_main_path(torch, rt, tasks, pipeline, card, dev, steps=40):
     """Phase 4: where a main-path step's time goes.  Wall time per step
-    without the profiler, then device time per step and per kernel from
-    ``torch.profiler``'s CUDA activity over the same number of steps."""
-    from torch.profiler import ProfilerActivity, profile
+    without the profiler, then device time per step, per kernel and as a
+    share of the profiled steps' wall time from ``torch.profiler``."""
 
     def loss(p, b):
         return rt.mse(rt.mlp_apply(p, b["x"]), b["y"])
@@ -330,33 +478,214 @@ def profile_main_path(torch, rt, tasks, pipeline, card, dev, steps=40):
         p, s, _ = run(p, s)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            p, s, _ = run(p, s)
-            torch.cuda.synchronize()
-        dev_evts = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        total_us = sum(e.self_device_time_total for e in dev_evts)
-        top = sorted(dev_evts, key=lambda e: -e.self_device_time_total)
-        # no CUDA activity in the trace means the profiler saw no device
-        # time: report it as not measured, not as an idle device
-        device_ms = total_us / 1e3 / steps if total_us else None
-        out[name] = dict(
-            steps=steps, wall_ms_per_step=wall_ms,
-            device_ms_per_step=device_ms,
-            device_busy_share=device_ms / wall_ms if device_ms else None,
-            device_ops_per_step=sum(e.count for e in dev_evts) / steps,
-            top=[dict(name=e.key[:90], us_per_step=e.self_device_time_total
-                      / steps, calls_per_step=e.count / steps,
-                      us_per_call=e.self_device_time_total / max(1, e.count))
-                 for e in top[:8]],
-            kernel_us_per_launch={
-                kname: e.self_device_time_total / e.count
-                for e in dev_evts for kname, key in KERNEL_KEYS.items()
-                if key in e.key and e.count},
-            card=card)
+        prof = device_profile(torch, lambda: run(p, s), steps)
+        out[name] = dict(steps=steps, wall_ms_per_step=wall_ms, **prof,
+                         card=card)
         print(json.dumps({"profile": name, **out[name]}), flush=True)
     return out
+
+
+def lm_expected(n_layers, mode, steps, tau_theta=1):
+    """Launch counts the transformer path implies for ``steps`` steps."""
+    per_step = LM_PER_LAYER * n_layers + 1        # + the untied head
+    updates = steps // tau_theta
+    return dict(
+        perturbed_matmul=per_step * steps if mode == "forward" else 0,
+        perturbed_matmul_pair=per_step * steps if mode == "central" else 0,
+        mgd_update_window=LM_WINDOW_LEAVES * updates, mgd_update=0)
+
+
+def lm_driver(rt, cfg, dev, impl=None, seed=0, **kw):
+    return rt.driver(
+        "discrete", rt.DriverConfig(dtheta=1e-2, eta=1e-2, seed=seed,
+                                    fused=True, kernel_impl=impl, **kw),
+        lambda p, b: rt.model_loss(p, cfg, b),
+        probe_fn=rt.make_transformer_probe_fn(cfg), device=dev)
+
+
+def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw):
+    """The first LM_CT_STEPS steps of the kernel run, each probed again
+    from the same params, state and batch through the plain route and, as
+    a control, through the kernel route with another seed's signs.  Fails
+    unless the kernel's C̃ is within LM_CT_REL of the step's cost of the
+    plain route's, and both controls (C̃ = 0, the other seed) miss it.
+    Returns the params and state after those steps, and the record."""
+    drv = lm_driver(rt, cfg, dev, **kw)
+    ref = lm_driver(rt, cfg, dev, "ref", **kw)
+    other = lm_driver(rt, cfg, dev, seed=1, **kw)
+    params, state = p0, drv.init(p0)
+    cts, plain_cts, other_cts, costs = [], [], [], []
+    for n in range(LM_CT_STEPS):
+        batch = sample(n)
+        plain_cts.append(ref.step(params, state, batch)[2]["c_tilde"].item())
+        other_cts.append(
+            other.step(params, state, batch)[2]["c_tilde"].item())
+        params, state, aux = drv.step(params, state, batch)
+        cts.append(aux["c_tilde"].item())
+        costs.append(aux["cost"].item())
+    tols = [LM_CT_REL * abs(c) for c in costs]
+
+    def worst(vals):           # largest gap to the plain route, in tols
+        return max(abs(v - p) / t for v, p, t in zip(vals, plain_cts, tols))
+
+    rec = dict(c_tilde_first=cts, c_tilde_first_plain=plain_cts,
+               c_tilde_first_other_seed=other_cts, first_costs=costs,
+               c_tilde_tol=tols,
+               c_tilde_max_abs_err_vs_plain=max(
+                   abs(a - b) for a, b in zip(cts, plain_cts)),
+               c_tilde_err_in_tols=worst(cts),
+               control_zero_err_in_tols=worst([0.0] * len(cts)),
+               control_other_seed_err_in_tols=worst(other_cts))
+    torch.cuda.synchronize()
+    if not rec["c_tilde_err_in_tols"] <= 1.0:
+        fail(f"transformer {kw}: first {LM_CT_STEPS} C̃ {cts} differ from "
+             f"the plain route's {plain_cts} beyond {tols}")
+    for control in ("control_zero", "control_other_seed"):
+        if not rec[control + "_err_in_tols"] > 1.0:
+            fail(f"transformer {kw}: the C̃ gate passes its {control} "
+                 f"({rec})")
+    return params, state, drv, rec
+
+
+def transformer_slice(torch, rt, kernels, card, dev):
+    """Phase 5: Qwen3-14B at full width, LM_LAYERS layers, three fused runs
+    of LM_STEPS steps (the first LM_CT_STEPS gated against the plain
+    route, the rest the counted main path); then the ``mgd_update`` entry
+    point."""
+    cfg = rt.get_config("qwen3-14b").replace(n_layers=LM_LAYERS)
+    sample = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)
+    p0 = rt.model_init(cfg, 0, device=dev)
+    runs = {
+        "central_tau1": dict(mode="central"),
+        "forward_tau1": dict(mode="forward"),
+        "central_replay4": dict(mode="central", replay=True, tau_theta=4),
+    }
+    totals = {name: 0 for name in SOURCES}
+    results = {}
+    replay_ct = None
+    main_steps = LM_STEPS - LM_CT_STEPS
+    for name, kw in runs.items():
+        params, state, drv, gate = c_tilde_gate(torch, rt, cfg, dev, sample,
+                                                p0, kw)
+        print(json.dumps({"transformer_c_tilde": name, **gate}), flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()    # the kernel route alone
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, aux = rt.make_epoch(drv, main_steps, sample)(
+            params, state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expected = lm_expected(LM_LAYERS, kw["mode"], main_steps,
+                               kw.get("tau_theta", 1))
+        if counts != expected:
+            fail(f"transformer {name}: launches {counts} != expected "
+                 f"{expected}")
+        if not bool(torch.isfinite(aux["cost"]).all()):
+            fail(f"transformer {name}: a cost went non-finite")
+        for k, v in counts.items():
+            totals[k] += v
+        if name == "central_replay4":
+            replay_ct = aux["c_tilde"][-4:]
+        results[name] = dict(
+            layers=LM_LAYERS, steps=LM_STEPS, main_path_steps=main_steps,
+            steps_per_s=main_steps / dt, s_per_step=dt / main_steps,
+            peak_mem_gb=peak / 1e9, last_cost=aux["cost"][-1].item(),
+            **gate, launches=counts, card=card)
+        print(json.dumps({"transformer": name, **results[name]}), flush=True)
+        if name == "central_tau1":
+            prof = device_profile(
+                torch, lambda: rt.make_epoch(drv, 2, sample)(params, state),
+                2)
+            results[name]["profile"] = prof
+            print(json.dumps({"transformer_profile": name, **prof}),
+                  flush=True)
+        del params, state, aux, drv
+        torch.cuda.empty_cache()
+    results["mgd_update_entry"], entry_counts = update_entry_point(
+        torch, rt, kernels, p0, replay_ct, card)
+    for k, v in entry_counts.items():
+        totals[k] += v
+    del p0
+    torch.cuda.empty_cache()
+    return results, totals
+
+
+def update_entry_point(torch, rt, kernels, params, coefs, card):
+    """``kernels.ops.mgd_update`` on every ndim ≥ 2 leaf of the model, with
+    the replay run's last 4 C̃ as the window: one launch per leaf."""
+    from repro_torch.core import perturbations as pert
+    from repro_torch.core.utils import leaf_meta, tree_leaves
+    from repro_torch.kernels import ops
+
+    leaves = tree_leaves(params)
+    kernels.reset_launch_counts()
+    finite = True
+    t0 = time.perf_counter()
+    for (lid, _, _), leaf in zip(leaf_meta(params), leaves):
+        if leaf.dim() < 2:
+            continue
+        seeds = [pert.leaf_seed(0, s, lid) for s in range(16, 20)]
+        out = ops.mgd_update(leaf, seeds, coefs, eta=1e-2, dtheta=1e-2)
+        finite = finite and bool(torch.isfinite(out).all())
+        del out
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = dict(perturbed_matmul=0, perturbed_matmul_pair=0,
+                    mgd_update_window=0, mgd_update=LM_WINDOW_LEAVES)
+    if counts != expected:
+        fail(f"mgd_update entry point: launches {counts} != {expected}")
+    if not finite:
+        fail("mgd_update entry point: a non-finite parameter")
+    rec = dict(leaves=LM_WINDOW_LEAVES, window=4, wall_s=dt, launches=counts,
+               card=card)
+    print(json.dumps({"mgd_update_entry": rec}), flush=True)
+    return rec, counts
+
+
+def full_depth(torch, rt, kernels, card, dev, steps=2):
+    """Phase 6: all 40 layers, central, kernel route only."""
+    cfg = rt.get_config("qwen3-14b")
+    sample = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rt.model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    drv = lm_driver(rt, cfg, dev, mode="central")
+    state = drv.init(params)
+    kernels.reset_launch_counts()
+    step_s, costs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, aux = rt.make_epoch(drv, 1, sample)(params, state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        costs.append(aux["cost"][0].item())
+    counts = kernels.launch_counts()
+    expected = lm_expected(cfg.n_layers, "central", steps)
+    if counts != expected:
+        fail(f"full depth: launches {counts} != expected {expected}")
+    if not all(math.isfinite(c) for c in costs):
+        fail("full depth: a cost went non-finite")
+    rec = dict(layers=cfg.n_layers, steps=steps, init_s=init_s,
+               s_per_step=step_s, costs=costs, start_mem_gb=start_gb,
+               params_gb=params_gb,
+               init_peak_mem_gb=init_peak_gb,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, card=card)
+    print(json.dumps({"full_depth": rec}), flush=True)
+    del params, state, aux, drv
+    torch.cuda.empty_cache()
+    return rec, counts
 
 
 def kernel_device_us(profiles):
@@ -371,7 +700,7 @@ def kernel_device_us(profiles):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=TRAIN_STEPS,
-                    help="training steps per run (multiple of 4, >= 32)")
+                    help="MLP training steps per run (multiple of 4, >= 32)")
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every record to this JSON file")
     args = ap.parse_args(argv)
@@ -396,9 +725,9 @@ def main(argv=None) -> int:
     # -- phase 1: device and build ------------------------------------------
     card = card_line()
     print(card, flush=True)
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     reports = _build.build_all()
-    build_s = time.perf_counter() - t0
+    build_s = time.perf_counter() - t_start
     print(f"kernels built in {build_s:.1f} s ({_build.BUILD_DIR})")
     for line in ptxas_summary(reports):
         print(line)
@@ -407,31 +736,49 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     recs = compare_kernels(torch, ops, pert, dev)
 
-    # -- phase 3: training on the card --------------------------------------
+    # -- phase 3: MLP training on the card ----------------------------------
     results, totals = train(torch, rt, kernels, tasks, pipeline, card,
                             args.steps, dev)
 
-    # -- phase 4: where the main path's step time goes ----------------------
+    # -- phase 4: where the MLP path's step time goes -----------------------
     profiles = profile_main_path(torch, rt, tasks, pipeline, card, dev)
     device_us = kernel_device_us(profiles)
 
+    # -- phase 5: the transformer slice at full width, 4 layers -------------
+    lm_results, lm_totals = transformer_slice(torch, rt, kernels, card, dev)
+
+    # -- phase 6: full depth, 40 layers -------------------------------------
+    deep, deep_counts = full_depth(torch, rt, kernels, card, dev)
+
+    for counts in (lm_totals, deep_counts):
+        for k, v in counts.items():
+            totals[k] += v
+    main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
+                  "perturbed_matmul_pair": (list(LM_MAIN), "bfloat16", None),
+                  "mgd_update_window": (list(LM_MAIN[1:]), "bfloat16", 1),
+                  "mgd_update": ([5120, 17408], "bfloat16", 4)}
     entries = []
     for name, (source, replaces) in SOURCES.items():
-        main_rec = recs[name][0]
+        shape, dname, window = main_shape[name]
+        main_rec = next(r for r in recs[name] if r["shape"] == shape
+                        and r["dtype"] == dname
+                        and r.get("window") == window)
         entries.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=totals[name], max_abs_err=main_rec["max_abs_err"],
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
-            library_ms=main_rec["library_ms"], shape=main_rec["shape"],
-            max_err=main_rec["max_rel_err"], kernel_ms=main_rec["ms"],
-            device_us_per_launch_main_path=device_us.get(name),
-            card=card, shapes=recs[name]))
+            library_ms=main_rec["library_ms"], shape=shape, dtype=dname,
+            device_us_per_launch_mlp_path=device_us.get(name), card=card))
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
-            card=card, build_s=build_s, kernels=entries, train=results,
-            profile=profiles, ptxas=ptxas_summary(reports)), indent=1))
+            card=card, build_s=build_s, total_s=total_s, kernels=entries,
+            shapes=recs, train=results, profile=profiles,
+            transformer=lm_results, full_depth=deep,
+            ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 ``numpy.asarray`` reads, such as the JAX package's params) into the same
 structure of tensors on a device; ``to_numpy`` goes back.  Values and
 dtypes are copied exactly, so both packages then compute on identical
-parameters.
+parameters.  bfloat16 travels as its 16-bit pattern: numpy has no
+bfloat16 of its own (the JAX package's arrays carry ``ml_dtypes``'), and
+``torch.from_numpy`` refuses that dtype.
 """
 from __future__ import annotations
 
@@ -15,12 +17,29 @@ from repro_torch.core.utils import tree_map
 from repro_torch.device import resolve_device
 
 
+def _leaf_to_torch(a, dev):
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.uint16).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def _leaf_to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # the JAX package's bfloat16 numpy dtype
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def to_torch(tree, device=None):
     """Tensors on ``device`` (the CUDA card unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True))
-                    .to(dev), tree)
+    return tree_map(lambda a: _leaf_to_torch(a, dev), tree)
 
 
 def to_numpy(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """numpy arrays on the host; bfloat16 comes back as ``ml_dtypes``'
+    bfloat16, the dtype of the JAX package's arrays."""
+    return tree_map(_leaf_to_numpy, tree)

@@ -28,41 +28,46 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
+def _walk(node, leaves):
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if isinstance(node, (list, tuple)):
+        return (type(node), None, [_walk(c, leaves) for c in node])
+    leaves.append(node)
+    return ("leaf",)
+
+
+def _build(d, it):
+    kind = d[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    children = [_build(c, it) for c in d[2]]
+    if kind == "dict":
+        return dict(zip(d[1], children))
+    if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+        return kind(*children)
+    return kind(children)
+
+
+# Module-level recursion, not nested closures: a closure that calls itself
+# is a reference cycle, and one holding the leaves list would keep every
+# flattened tensor alive until the cyclic garbage collector runs.
+
+
 def tree_flatten(tree):
     """``(leaves, treedef)`` in JAX order; ``tree_unflatten`` inverts it."""
     leaves = []
-
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node), None, [walk(c) for c in node])
-        leaves.append(node)
-        return ("leaf",)
-
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        children = [build(c) for c in d[2]]
-        if kind == "dict":
-            return dict(zip(d[1], children))
-        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
-            return kind(*children)
-        return kind(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.perturbations import leaf_seed
 from repro_torch.device import resolve_device
+from . import tasks
 
 
 def dataset_sampler(x: torch.Tensor, y: torch.Tensor, batch_size: int, *,
@@ -52,3 +53,11 @@ def generator_sampler(batch_fn: Callable, batch_size: int, *, seed=0,
         return dict(zip(as_dict_keys, out))
 
     return sample_fn
+
+
+def lm_sampler(batch_size: int, seq_len: int, vocab: int, *, seed=0,
+               device=None):
+    """Index-seeded Zipf-Markov LM batches (``tasks.lm_batch``)."""
+    return generator_sampler(
+        lambda g, b: tasks.lm_batch(g, b, seq_len, vocab), batch_size,
+        seed=seed, device=device)

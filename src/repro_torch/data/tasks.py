@@ -3,6 +3,7 @@
 * XOR / n-bit parity — exact (the paper's Figs 4–7, 9).
 * NIST7x7 — the paper's 7×7 N/I/S/T letter task: base glyphs, ±1 px
   shifts and pixel noise (the 49-4-4 net's data).
+* Synthetic LM streams — Zipf-Markov token sequences for the LM archs.
 
 Draws come from an explicit ``torch.Generator`` on the target device; the
 samplers in ``pipeline`` key it on (seed, index).  They do not reproduce
@@ -12,6 +13,7 @@ same arrays.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -73,3 +75,23 @@ def nist7x7_batch(gen: torch.Generator, batch_size: int, *, noise=0.25,
     x = imgs.reshape(batch_size, 49)
     y = torch.nn.functional.one_hot(labels, 4).to(torch.float32)
     return x, y
+
+
+def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
+             vocab: int):
+    """Zipf-Markov synthetic text, the reference's law: a Zipfian marginal
+    by inverse CDF on a uniform in [1e-6, 1), and 75 % of positions
+    continuing the deterministic chain t → (31·t + 7) mod vocab.  Returns
+    dict(tokens, labels) [B, S] int64 with next-token labels."""
+    dev = gen.device
+    shape = (batch_size, seq_len + 1)
+    u = torch.rand(shape, generator=gen, device=dev) * (1.0 - 1e-6) + 1e-6
+    z = torch.exp(u * math.log(vocab)).to(torch.int64) - 1    # ~1/rank
+    z = z.clamp(0, vocab - 1)
+    cont = torch.rand(shape, generator=gen, device=dev) < 0.75
+    cols = [z[:, 0]]
+    for t in range(1, seq_len + 1):
+        cols.append(torch.where(cont[:, t], (cols[-1] * 31 + 7) % vocab,
+                                z[:, t]))
+    toks = torch.stack(cols, dim=1)                            # [B, S+1]
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -13,6 +13,7 @@ KERNEL_WRAPPERS = {
     "perturbed_matmul": perturbed_matmul.perturbed_matmul,
     "perturbed_matmul_pair": perturbed_matmul.perturbed_matmul_pair,
     "mgd_update_window": mgd_update.mgd_update_window,
+    "mgd_update": mgd_update.mgd_update,
 }
 
 

@@ -118,3 +118,24 @@ def mgd_update_window(w, lseeds, coefs, *, alpha, dtheta, impl=None):
     # the reference's association: α·(Δθ·coef_j), in f32
     terms = f32(alpha) * (f32(dtheta) * coefs.float())
     return _mu.mgd_update_window(w2.contiguous(), lseeds, terms).reshape(shape)
+
+
+def mgd_update(w, lseeds, coefs, *, eta, dtheta, impl=None):
+    """W − (η/Δθ)·Σ_j coefs[j]·sign_j: the window's sum first, in an f32
+    accumulator, then one subtract (the reference's ``mgd_update``).
+
+    ``lseeds`` are [J] uint32 seeds (host ints or an int32 bit-pattern
+    tensor), ``coefs`` a [J] float32 tensor (the C̃ of each window step).
+    Any ndim ≥ 2 leaf is viewed row-major as a matrix.
+    """
+    shape = w.shape
+    w2 = _as_matrix(w)
+    if resolve_impl(impl, w) == "ref":
+        return _ref.mgd_update_ref(w2, lseeds, coefs, eta=eta,
+                                   dtheta=dtheta).reshape(shape)
+    if not isinstance(lseeds, torch.Tensor):
+        lseeds = seeds_tensor(list(lseeds), w.device)
+    scale = f32(float(eta) / float(dtheta)).item()
+    return _mu.mgd_update(w2.contiguous(), lseeds,
+                          coefs.float().contiguous(), scale=scale
+                          ).reshape(shape)

@@ -15,14 +15,24 @@ from repro_torch.core.perturbations import MASK, rademacher_signs
 from repro_torch.core.utils import f32
 
 
+SIGN_CHUNK = 1 << 24   # elements per pass of the int64 hash
+
+
 def leaf_signs(lseed, shape, device=None) -> torch.Tensor:
-    """±1 float32 signs for a whole leaf of ``shape`` (row-major indexing).
+    """±1 float32 signs for a whole leaf of ``shape`` (row-major indexing,
+    uint32 index wrap past 2³² elements).
 
     ``lseed`` is a host int or a 0-dim integer tensor holding the uint32
-    bit pattern (int32 two's complement is accepted)."""
+    bit pattern (int32 two's complement is accepted).  The int64 hash runs
+    over ``SIGN_CHUNK`` elements at a time, so its temporaries stay small
+    beside an LM-sized leaf; chunking changes no value."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    return rademacher_signs(lseed, idx).reshape(shape)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    for start in range(0, n, SIGN_CHUNK):
+        stop = min(n, start + SIGN_CHUNK)
+        idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+        out[start:stop] = rademacher_signs(lseed, idx)
+    return out.reshape(shape)
 
 
 def perturbed_matmul_ref(x, w, lseed, *, dtheta, sign=1.0, out_dtype=None):
@@ -46,6 +56,14 @@ def _seed_list(lseeds):
     if isinstance(lseeds, torch.Tensor):
         return list((lseeds.to(torch.int64) & MASK).unbind(0))
     return [int(s) & MASK for s in lseeds]
+
+
+def mgd_update_ref(w, lseeds, coefs, *, eta, dtheta):
+    """W − (η/Δθ)·Σ_j coefs[j]·signs_j, every window sign materialized."""
+    acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for j, ls in enumerate(_seed_list(lseeds)):
+        acc = acc + coefs[j] * leaf_signs(ls, w.shape, device=w.device)
+    return (w.float() - f32(float(eta) / float(dtheta)) * acc).to(w.dtype)
 
 
 def mgd_update_window_ref(w, lseeds, coefs, *, alpha, dtheta):

@@ -1,5 +1,15 @@
-"""Models: dense layers and the paper's sigmoid MLPs."""
+"""Models: the paper's sigmoid MLPs and the dense GQA decoder."""
+from .config import ArchConfig
 from .simple import make_mlp_probe_fn, mlp_apply, mlp_apply_perturbed, mlp_init
+from .transformer import (init_cache, make_transformer_probe_fn, model_decode,
+                          model_forward, model_forward_perturbed, model_init,
+                          model_loss, model_prefill, model_probe_costs,
+                          supports_fused_probe)
 
-__all__ = ["mlp_init", "mlp_apply", "mlp_apply_perturbed",
-           "make_mlp_probe_fn"]
+__all__ = [
+    "mlp_init", "mlp_apply", "mlp_apply_perturbed", "make_mlp_probe_fn",
+    "ArchConfig", "model_init", "model_forward", "model_loss",
+    "model_prefill", "model_decode", "init_cache",
+    "model_forward_perturbed", "model_probe_costs",
+    "make_transformer_probe_fn", "supports_fused_probe",
+]

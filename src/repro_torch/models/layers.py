@@ -1,7 +1,10 @@
-"""Dense building blocks (plain functions on dicts of tensors).
+"""Shared building blocks (plain functions on dicts of tensors).
 
-Parameters keep the JAX package's layout: ``{"w": [d_in, d_out],
-"b": [d_out]}``, so leaf ids and sign indices match it.
+Parameters keep the JAX package's layout (``{"w": [d_in, d_out],
+"b": [d_out]}``, ``{"scale": [d]}``, ``{"table": [vocab, d]}``), so leaf
+ids and sign indices match it.  Compute dtype follows the input;
+normalization statistics are f32.  Init functions draw from an explicit
+``torch.Generator`` on the generator's device.
 
 ``pdense`` is the perturbable counterpart of ``dense`` on the fused probe
 path: the weight matmul goes through the perturbed-matmul kernels, which
@@ -17,18 +20,21 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import perturbations as pert
 from repro_torch.core.perturbations import MASK
+from repro_torch.core.utils import f32
 from repro_torch.kernels import ops as kops
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias=False,
                dtype=torch.float32, scale=None, device=None):
     """W ~ N(0, 1)·scale (default 1/sqrt(d_in)) drawn from ``gen`` on the
-    CPU, then placed on ``device``; zero bias."""
+    generator's device, then placed on ``device``; zero bias."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32) * scale
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     p = {"w": w.to(dtype).to(device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
@@ -40,6 +46,43 @@ def dense(p, x):
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device=None):
+    table = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                        device=gen.device) * 0.02
+    return {"table": table.to(dtype).to(device)}
+
+
+def embed(p, ids):
+    return p["table"][ids.long()]
+
+
+def glu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
+                 dtype=torch.float32, device=None):
+    """Gated (SwiGLU) MLP — the LM-family feedforward."""
+    return {
+        "gate": dense_init(gen, d, d_ff, dtype=dtype, device=device),
+        "up": dense_init(gen, d, d_ff, dtype=dtype, device=device),
+        "down": dense_init(gen, d_ff, d, dtype=dtype, device=device),
+    }
+
+
+def glu_mlp(p, x):
+    h = F.silu(dense(p["gate"], x).float()).to(x.dtype)
+    return dense(p["down"], h * dense(p["up"], x))
 
 
 def _stream_offset(layer: int, nelem: int) -> int:
@@ -81,3 +124,29 @@ def pdense(p, xs, ids, probe, *, layer=None):
         bs = pleaf(p["b"], ids["b"], probe, layer=layer)
         ys = tuple(y + b for y, b in zip(ys, bs))
     return tuple(ys)
+
+
+def prmsnorm(p, xs, ids, probe, *, layer=None, eps=1e-5):
+    """Per-stream rmsnorm with the scale leaf perturbed (materialized)."""
+    scales = pleaf(p["scale"], ids["scale"], probe, layer=layer)
+    return tuple(rmsnorm({"scale": sc}, x, eps)
+                 for sc, x in zip(scales, xs))
+
+
+def pembed(p, tokens, ids, probe):
+    """Per-stream rows of the perturbed embedding table, ``take(table ±
+    θ̃, tokens)``, with θ̃ generated for the gathered rows only.
+
+    The sign of element (t, c) has index t·d + c in the table's row-major
+    order, and ``apply_signed`` is elementwise, so this equals
+    materializing θ̃ over the whole [vocab, d] table and gathering, bit for
+    bit, at the cost of the rows the batch reads."""
+    table = p["table"]
+    d = table.shape[-1]
+    tok = tokens.long()
+    idx = (tok[..., None] * d
+           + torch.arange(d, dtype=torch.int64, device=tok.device)) & MASK
+    sgn = pert.rademacher_signs(probe.lseed(ids["table"]), idx)
+    theta = (sgn * f32(probe.ctx.dtheta)).to(table.dtype)
+    rows = table[tok]
+    return tuple(pert.apply_signed(rows, theta, s) for s in probe.ctx.signs)

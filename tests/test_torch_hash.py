@@ -169,3 +169,24 @@ def test_tree_flatten_roundtrip_and_order():
     assert [t.numel() for t in leaves] == [3, 1, 2]
     back = tutils.tree_unflatten(treedef, leaves)
     assert back["z"][1][1] is None and back["a"] is leaves[0]
+
+
+def test_tree_flatten_and_map_free_leaves_without_gc():
+    """Flattening leaves no reference cycle behind: with the cyclic
+    garbage collector off, a leaf dies with its last outside reference.
+    (At LM widths a cycle holding a parameter tree kept whole trees of
+    old parameters alive across training steps.)"""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        t = torch.zeros(3)
+        tree = {"a": [t, (t,)], "b": None}
+        leaves, treedef = tutils.tree_flatten(tree)
+        out = tutils.tree_map(lambda x: x + 1,
+                              tutils.tree_unflatten(treedef, leaves))
+        refs = [weakref.ref(t), weakref.ref(out["a"][0])]
+        del t, tree, leaves, out
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -169,6 +169,9 @@ def test_dispatch_rules_on_cpu():
     with pytest.raises(ValueError, match="CUDA device"):
         tops.mgd_update_window(w, [0], torch.ones(1), alpha=1.0, dtheta=0.1,
                                impl="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.mgd_update(w, [0], torch.ones(1), eta=0.1, dtheta=0.1,
+                        impl="cuda")
     for bad in ("pallas", "interpret", "triton"):
         with pytest.raises(ValueError):
             tops.perturbed_matmul(x, w, 0, dtheta=0.1, impl=bad)
@@ -183,5 +186,96 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         mgd_update.mgd_update_window(x, torch.zeros(1, dtype=torch.int32),
                                      torch.zeros(1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mgd_update.mgd_update(x, torch.zeros(1, dtype=torch.int32),
+                              torch.zeros(1), scale=1.0)
     assert set(tkernels.launch_counts()) == {
-        "perturbed_matmul", "perturbed_matmul_pair", "mgd_update_window"}
+        "perturbed_matmul", "perturbed_matmul_pair", "mgd_update_window",
+        "mgd_update"}
+
+
+# --- mgd_update: the sum-then-subtract update ----------------------------------
+
+
+@pytest.mark.parametrize("k,n,j", [(128, 256, 4), (96, 80, 7), (256, 512, 1),
+                                   (8, 8, 3)])
+def test_mgd_update_matches_reference(k, n, j):
+    """The plain version against ``repro.kernels.ref.mgd_update_ref`` and
+    the interpret-mode Pallas kernel on the grid of
+    ``tests/test_kernels.py::test_mgd_update_matches_ref``, at its
+    tolerance (rtol 1e-4, atol 1e-3)."""
+    rng = np.random.default_rng(k + n + j)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    lseeds = [tpert.leaf_seed(7, t, 0) for t in range(j)]
+    coefs = rng.standard_normal((j,)).astype(np.float32)
+    jl = jnp.asarray(np.array(lseeds, np.uint32))
+    want_ref = jref.mgd_update_ref(jnp.asarray(w), jl, jnp.asarray(coefs),
+                                   eta=0.1, dtheta=0.01)
+    want_pal = jops.mgd_update(jnp.asarray(w), jl, jnp.asarray(coefs),
+                               eta=0.1, dtheta=0.01, impl="interpret")
+    got = tops.mgd_update(torch.from_numpy(w), lseeds,
+                          torch.from_numpy(coefs), eta=0.1, dtheta=0.01)
+    assert got.dtype == torch.float32 and got.shape == (k, n)
+    for want in (want_ref, want_pal):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-3)
+
+
+def test_mgd_update_bf16_matches_reference():
+    rng = np.random.default_rng(11)
+    w = jnp.asarray(rng.standard_normal((96, 80)).astype(np.float32),
+                    jnp.bfloat16)
+    lseeds = [tpert.leaf_seed(3, t, 2) for t in range(4)]
+    coefs = rng.standard_normal((4,)).astype(np.float32)
+    want = jref.mgd_update_ref(w, jnp.asarray(np.array(lseeds, np.uint32)),
+                               jnp.asarray(coefs), eta=0.1, dtheta=0.01)
+    got = tops.mgd_update(_to_torch(w), lseeds, torch.from_numpy(coefs),
+                          eta=0.1, dtheta=0.01)
+    assert got.dtype == torch.bfloat16
+    assert _max_err(want, got) <= 0.15 * max(
+        1.0, float(np.abs(np.asarray(want, np.float32)).max()))
+
+
+def test_mgd_update_equals_sequential_sgd_steps():
+    """One fused window update == applying each scalar step separately
+    (``tests/test_kernels.py::test_mgd_update_equals_sequential_sgd_steps``,
+    same tolerance)."""
+    w = np.random.default_rng(3).standard_normal((64, 64)).astype(np.float32)
+    steps = [5, 6, 7]
+    coefs = np.array([0.3, -0.2, 0.05], np.float32)
+    fused = tops.mgd_update(
+        torch.from_numpy(w), [tpert.leaf_seed(0, t, 0) for t in steps],
+        torch.from_numpy(coefs), eta=0.01, dtheta=0.1)
+    w_seq = torch.from_numpy(w)
+    for t, c in zip(steps, coefs):
+        th = tpert.generate({"w": w_seq}, ptype="rademacher", step=t, seed=0,
+                            dtheta=0.1)["w"]
+        w_seq = w_seq - 0.01 * float(c) * th / (0.1 * 0.1)
+    np.testing.assert_allclose(fused.numpy(), w_seq.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_mgd_update_tensor_seeds_and_stacked_leaf():
+    """int32 bit-pattern seeds equal host-int seeds, and a 3-D leaf is the
+    row-major matrix view of itself."""
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.standard_normal((3, 40, 17)).astype(np.float32))
+    lseeds = [2 ** 32 - 3, 2 ** 31 + 17]
+    coefs = torch.tensor([0.5, -1.25])
+    a = tops.mgd_update(w, lseeds, coefs, eta=0.1, dtheta=0.01)
+    b = tops.mgd_update(w, tops.seeds_tensor(lseeds, "cpu"), coefs, eta=0.1,
+                        dtheta=0.01)
+    c = tops.mgd_update(w.reshape(-1, 17), lseeds, coefs, eta=0.1,
+                        dtheta=0.01)
+    assert a.shape == (3, 40, 17)
+    assert torch.equal(a, b) and torch.equal(a.reshape(-1, 17), c)
+
+
+def test_leaf_signs_chunks_change_no_value(monkeypatch):
+    from repro_torch.kernels import ref as tref
+    whole = tref.leaf_signs(12345, (37, 53))
+    monkeypatch.setattr(tref, "SIGN_CHUNK", 100)
+    chunked = tref.leaf_signs(12345, (37, 53))
+    assert torch.equal(whole, chunked)
+    want = jref.leaf_signs(jnp.uint32(12345), (37, 53))
+    np.testing.assert_array_equal(chunked.numpy(), np.asarray(want))
