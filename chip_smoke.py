@@ -8,7 +8,8 @@ Phases, each fatal on failure (nothing is caught):
 1. Device and build: require a CUDA card, print ``nvidia-smi``'s name and
    power limit, compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel) and print ptxas's register,
-   shared-memory and spill report.
+   shared-memory and spill report (both perturbed-matmul kernels, the
+   SIMT one and the tensor-core one, and the updates).
 2. Kernels against their plain PyTorch versions on the card, at the MLP
    path's shapes (x [B,49]·W [49,4], x [B,4]·W [4,4], B ∈ {1, 8}), at a
    ragged shape (5, 127, 257), at one sizing shape, x [256,5120]·W
@@ -16,20 +17,26 @@ Phases, each fatal on failure (nothing is caught):
    [512,5120]·W for W ∈ {[5120,5120], [5120,1024], [5120,17408],
    [17408,5120], [5120,151936]}; the sum-then-subtract update
    ``mgd_update`` at (128, 256, J=4), (96, 80, 7) and [5120, 17408] J=4,
-   f32 and bf16.  Pass: matmul max error ≤ 1e-4 of max|y| in f32 and
-   ≤ 2⁻⁶ (two bf16 ulps of max|y|) in bf16, and the unperturbed product
-   x·W must miss that limit (so a kernel that drops θ̃ cannot pass); both
-   updates bitwise.  Each is timed with CUDA events after warm-up, beside
-   its plain version, a library yardstick (``torch.matmul`` /
-   ``Tensor.add_`` / ``torch.sub``) and the card's bound for the same
-   work.
+   f32 and bf16.  The matmuls take the kernel ``perturbed_matmul.route``
+   picks: the tensor-core kernel for the bf16 LM shapes, the SIMT kernel
+   for the rest; at the LM shapes the SIMT kernel is checked and timed as
+   well, as the previous design.  Pass: matmul max error ≤ 1e-4 of
+   max|y| in f32 and ≤ 2⁻⁶ (two bf16 ulps of max|y|) in bf16, and the
+   unperturbed product x·W must miss that limit (so a kernel that drops θ̃
+   cannot pass); at the LM shapes, bf16 in and f32 out, the tensor-core
+   kernel (single and pair) within 1e-4 of max|y|, a limit that x @ θ̃
+   with θ̃ = W + amp·S rounded to bf16 must miss (only the exact split form
+   passes); both updates bitwise.  Each is timed with CUDA events after
+   warm-up, beside its plain version, a library yardstick
+   (``torch.matmul`` / ``Tensor.add_`` / ``torch.sub``) and the card's
+   bound for the same work.
 3. Training, the main path: NIST7x7 49-4-4 with the paper's Δθ = 1e-2,
    η = 0.1, seed 1, fused, through ``repro_torch.driver`` and
    ``make_epoch``: central τ_θ = 1, forward τ_θ = 1 and central replay
    τ_θ = 4.  The launch counters are zeroed before each run and must equal
-   the per-step counts the path implies; the first 32 C̃ must agree with
-   the same run through the plain versions on the card (atol 1e-5); costs
-   must stay finite.  Steps/s and held-out accuracy on 512 samples are
+   the per-step counts the path implies (all on the SIMT kernel: f32); the
+   first 32 C̃ must agree with the same run through the plain versions on
+   the card (atol 1e-5); costs must stay finite.  Steps/s and held-out accuracy on 512 samples are
    printed.
 4. Where a main-path step's time goes: wall time per step, and device
    time per step and per kernel from ``torch.profiler`` (central and
@@ -44,13 +51,14 @@ Phases, each fatal on failure (nothing is caught):
    agree within 2⁻¹¹ of that step's own cost, and two controls must miss
    that limit: C̃ = 0 and the kernel route probing another seed's signs.
    The remaining 16 steps are the main path: launch counters zeroed before
-   them must equal the path's counts (29 matmul launches a step, 13 window
-   updates an update); costs stay finite.  Then the
-   ``kernels.ops.mgd_update`` entry point updates every ndim ≥ 2 leaf once
-   (13 launches).  Printed: steps/s, peak device memory, and the device's
+   them must equal the path's counts (29 matmul launches a step, every one
+   on the tensor-core kernel, 13 window updates an update); costs stay
+   finite.  Then the ``kernels.ops.mgd_update`` entry point updates every
+   ndim ≥ 2 leaf once (13 launches).  Printed: steps/s, peak device memory, and the device's
    busy share under ``torch.profiler`` for central.
 6. Full depth: all 40 layers, central, 2 steps, kernel route only, with
-   its launch counts, peak device memory and seconds per step.
+   its launch counts (281 matmul launches a step, all tensor-core), peak
+   device memory and seconds per step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither, when
@@ -102,17 +110,22 @@ LM_CT_STEPS = 4
 LM_CT_REL = 2.0 ** -11
 LM_PER_LAYER = 7            # wq wk wv wo gate up down
 LM_WINDOW_LEAVES = 13       # ndim ≥ 2 leaves of the stacked param tree
-# substrings of each kernel's demangled name in a profiler trace
-KERNEL_KEYS = {"perturbed_matmul": "perturbed_matmul_kernel<1",
-               "perturbed_matmul_pair": "perturbed_matmul_kernel<2",
-               "mgd_update_window": "mgd_update_window_kernel",
-               "mgd_update": "mgd_update_kernel<"}
+# substrings of each kernel's demangled name in a profiler trace (both
+# routes of the perturbed matmuls)
+KERNEL_KEYS = {"perturbed_matmul": ("perturbed_matmul_kernel<1",
+                                    "perturbed_matmul_tc_kernel<1"),
+               "perturbed_matmul_pair": ("perturbed_matmul_kernel<2",
+                                         "perturbed_matmul_tc_kernel<2"),
+               "mgd_update_window": ("mgd_update_window_kernel",),
+               "mgd_update": ("mgd_update_kernel<",)}
 
+# the kernel that runs each entry on the main path (the LM path is bf16:
+# the perturbed matmuls take the tensor-core kernel there)
 SOURCES = {
-    "perturbed_matmul": ("src/repro_torch/kernels/csrc/perturbed_matmul.cu",
+    "perturbed_matmul": ("src/repro_torch/kernels/csrc/perturbed_matmul_tc.cu",
                          "src/repro/kernels/perturbed_matmul.py:137"),
     "perturbed_matmul_pair": (
-        "src/repro_torch/kernels/csrc/perturbed_matmul.cu",
+        "src/repro_torch/kernels/csrc/perturbed_matmul_tc.cu",
         "src/repro/kernels/perturbed_matmul.py:234"),
     "mgd_update_window": ("src/repro_torch/kernels/csrc/mgd_update.cu",
                           "src/repro/kernels/mgd_update.py:159"),
@@ -196,15 +209,25 @@ def rel_err(a, b) -> float:
 
 def print_rec(name, r):
     window = f" J={r['window']}" if "window" in r else ""
-    print(f"phase 2: {name} {r['shape']} {r['dtype']}{window}: "
+    kernel = f" [{r['kernel']}]" if "kernel" in r else ""
+    extra = ""
+    if "simt_ms" in r:
+        extra = (f"; in turns: cluster {r['cluster']} {r['cluster_ab_ms']:.4g} "
+                 f"ms, cluster 1 {r['cluster1_ms']:.4g} ms; "
+                 f"simt {r['simt_ms']:.4g} ms, split bound "
+                 f"{r['split_bound_ms']:.4g}, f32-out rel err "
+                 f"{r['f32_out_rel_err']:.3g} (θ̃-in-bf16 control "
+                 f"{r['bf16_theta_control_rel_err']:.3g})")
+    print(f"phase 2: {name}{kernel} {r['shape']} {r['dtype']}{window}: "
           f"{r['ms']:.4g} ms, plain {r['plain_ms']:.4g}, library "
           f"{r['library_ms']:.4g}, bound {r['bound_ms']:.4g} "
-          f"({r['bound_by']}), max abs err {r['max_abs_err']:.3g}",
+          f"({r['bound_by']}), max abs err {r['max_abs_err']:.3g}{extra}",
           flush=True)
 
 
 def compare_kernels(torch, rt_ops, pert, dev):
     """Phase 2: every kernel against its plain version on the card."""
+    from repro_torch.kernels import perturbed_matmul as pm
     gen = torch.Generator(device=dev).manual_seed(0)
     lseed = pert.leaf_seed(1, 0, 3)
     cases = [(s, "float32") for s in MAIN_SHAPES] + [
@@ -228,6 +251,7 @@ def compare_kernels(torch, rt_ops, pert, dev):
             return rt_ops.perturbed_matmul_pair(x, xm, w, lseed, dtheta=1e-2,
                                                 impl=impl)
 
+        kernel = pm.route(x, w)
         y, r = single(), single("ref")
         err = rel_err(y, r)
         abs_1 = (y.float() - r.float()).abs().max().item()
@@ -253,18 +277,22 @@ def compare_kernels(torch, rt_ops, pert, dev):
         b2 = bound(4.0 * m * k * n, (2 * m * k + k * n + 2 * m * n) * esz,
                    dname)
         recs["perturbed_matmul"].append(dict(
-            shape=shape, dtype=dname, max_abs_err=abs_1, max_rel_err=err,
-            tol=TOL[dname], dropped_theta_rel_err=dropped, ms=time_ms(single), plain_ms=time_ms(lambda: single("ref")),
+            shape=shape, dtype=dname, kernel=kernel, max_abs_err=abs_1,
+            max_rel_err=err, tol=TOL[dname], dropped_theta_rel_err=dropped,
+            ms=time_ms(single), plain_ms=time_ms(lambda: single("ref")),
             library_ms=time_ms(lambda: torch.matmul(x, w)),
             bound_ms=b1[0], bound_by=b1[1]))
         recs["perturbed_matmul_pair"].append(dict(
-            shape=shape, dtype=dname, max_abs_err=abs_2, max_rel_err=err_p,
-            tol=TOL[dname], dropped_theta_rel_err=dropped, ms=time_ms(pair), plain_ms=time_ms(lambda: pair("ref")),
+            shape=shape, dtype=dname, kernel=kernel, max_abs_err=abs_2,
+            max_rel_err=err_p, tol=TOL[dname], dropped_theta_rel_err=dropped,
+            ms=time_ms(pair), plain_ms=time_ms(lambda: pair("ref")),
             library_ms=time_ms(lambda: torch.matmul(xs2, w)),
             bound_ms=b2[0], bound_by=b2[1]))
+        del xs2
+        if kernel == "tc":
+            tc_extras(torch, rt_ops, pm, recs, x, xm, w, lseed, dname)
         for name in ("perturbed_matmul", "perturbed_matmul_pair"):
             print_rec(name, recs[name][-1])
-        del xs2
         for j in ((1, 4) if dname == "float32" or m == LM_TOKENS else (4,)):
             if (k, n, dname, j) in windows_done:
                 continue
@@ -278,6 +306,96 @@ def compare_kernels(torch, rt_ops, pert, dev):
             recs["mgd_update"].append(
                 compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname))
     return recs
+
+
+def tc_extras(torch, rt_ops, pm, recs, x, xm, w, lseed, dname):
+    """At a shape the tensor-core kernel takes: the SIMT kernel checked and
+    timed there too (the previous design), and the bf16-in, f32-out gate
+    that only the exact split form passes, with its control."""
+    from repro_torch.kernels import ref as rt_ref
+    m, k = x.shape
+    n = w.shape[1]
+    f32 = torch.float32
+
+    def simt_single():
+        return pm.perturbed_matmul(x, w, lseed, amp=-1e-2, kernel="simt")
+
+    def simt_pair():
+        return pm.perturbed_matmul_pair(x, xm, w, lseed, dtheta=1e-2,
+                                        kernel="simt")
+
+    def single_at(cluster):
+        return lambda: pm.perturbed_matmul(x, w, lseed, amp=-1e-2,
+                                           cluster=cluster)
+
+    def pair_at(cluster):
+        return lambda: pm.perturbed_matmul_pair(x, xm, w, lseed, dtheta=1e-2,
+                                                cluster=cluster)
+
+    def f32_single(impl=None):
+        return rt_ops.perturbed_matmul(x, w, lseed, dtheta=1e-2, sign=-1.0,
+                                       impl=impl, out_dtype=f32)
+
+    def f32_pair(impl=None):
+        return rt_ops.perturbed_matmul_pair(x, xm, w, lseed, dtheta=1e-2,
+                                            impl=impl, out_dtype=f32)
+
+    r = rt_ops.perturbed_matmul(x, w, lseed, dtheta=1e-2, sign=-1.0,
+                                impl="ref")
+    simt_err = rel_err(simt_single(), r)
+    del r
+    rp, rm = rt_ops.perturbed_matmul_pair(x, xm, w, lseed, dtheta=1e-2,
+                                          impl="ref")
+    sp, sm = simt_pair()
+    simt_err_p = max(rel_err(sp, rp), rel_err(sm, rm))
+    del rp, rm, sp, sm
+    y32, r32 = f32_single(), f32_single("ref")
+    err32 = rel_err(y32, r32)
+    yp32, ym32 = f32_pair()
+    rp32, rm32 = f32_pair("ref")
+    err32_p = max(rel_err(yp32, rp32), rel_err(ym32, rm32))
+    signs = rt_ref.leaf_signs(lseed, (k, n), device=w.device)
+    # control: the same products with θ̃ = W ± Δθ·S rounded to bf16 first
+    ctl = min(rel_err(x.float() @ (w.float() - 1e-2 * signs)
+                      .to(torch.bfloat16).float(), r32),
+              rel_err(x.float() @ (w.float() + 1e-2 * signs)
+                      .to(torch.bfloat16).float(), rp32))
+    del y32, r32, yp32, ym32, rp32, rm32, signs
+    torch.cuda.synchronize()
+    shape = [m, k, n]
+    for name, e in (("perturbed_matmul", simt_err),
+                    ("perturbed_matmul_pair", simt_err_p)):
+        if not e <= TOL[dname]:
+            fail(f"{name} (simt) {shape} {dname}: rel err {e} > {TOL[dname]}")
+    for name, e in (("perturbed_matmul", err32),
+                    ("perturbed_matmul_pair", err32_p)):
+        if not e <= TOL["float32"]:
+            fail(f"{name} (tc) {shape} bf16 in, f32 out: rel err {e} > "
+                 f"{TOL['float32']}")
+    if not ctl > TOL["float32"]:
+        fail(f"perturbed_matmul {shape}: θ̃ rounded to bf16 is within the "
+             f"f32-out tolerance ({ctl} ≤ {TOL['float32']}), so the gate "
+             f"cannot tell the split form from it")
+    ops = {"perturbed_matmul": 4.0 * m * k * n,
+           "perturbed_matmul_pair": 8.0 * m * k * n}
+    for name, streams, e_simt, e32, fn, at in (
+            ("perturbed_matmul", 1, simt_err, err32, simt_single, single_at),
+            ("perturbed_matmul_pair", 2, simt_err_p, err32_p, simt_pair,
+             pair_at)):
+        # each sign is hashed once per cluster of row blocks
+        blocks = -(-m // (64 if streams == 2 else 128))
+        cluster = pm.tc_cluster(streams, m)
+        # the chosen cluster size against clusters of one CTA, timed in
+        # turns (A B B A) so that clock and power drift fall on both
+        ab = [time_ms(at(c)) for c in (cluster, 1, 1, cluster)]
+        recs[name][-1].update(
+            simt_max_rel_err=e_simt, simt_ms=time_ms(fn),
+            f32_out_rel_err=e32, f32_out_tol=TOL["float32"],
+            bf16_theta_control_rel_err=ctl,
+            split_bound_ms=ops[name] / PEAK_OPS["bfloat16"] * 1e3,
+            cluster=cluster, sign_hashes_per_launch=-(-blocks // cluster),
+            cluster_ab_ms=(ab[0] + ab[3]) / 2, cluster1_ms=(ab[1] + ab[2]) / 2,
+            cluster1_sign_hashes_per_launch=blocks)
 
 
 def compare_window(torch, rt_ops, pert, gen, w, j, dname, esz):
@@ -404,6 +522,7 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
         counts = kernels.launch_counts()
         if counts != expected:
             fail(f"{name}: launches {counts} != expected {expected}")
+        by_route = check_routes(kernels, counts, "simt", name)
         if not finite:
             fail(f"{name}: a cost went non-finite")
         out = rt.mlp_apply(params, xe)
@@ -415,9 +534,21 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
         results[name] = dict(
             steps=steps, steps_per_s=(steps - CT_CHECK_STEPS) / dt,
             heldout_acc_512=acc, final_cost=aux["cost"][-1].item(),
-            c_tilde_max_abs_err_vs_plain=ct_err, launches=counts, card=card)
+            c_tilde_max_abs_err_vs_plain=ct_err, launches=counts,
+            launches_by_kernel=by_route, card=card)
         print(json.dumps({"train": name, **results[name]}), flush=True)
     return results, totals
+
+
+def check_routes(kernels, counts, route, what):
+    """Every perturbed-matmul launch in ``counts`` went through ``route``
+    (``"tc"`` or ``"simt"``); returns the counts by route."""
+    by_route = kernels.route_launch_counts()
+    for name in kernels.MATMUL_WRAPPERS:
+        if by_route[name][route] != counts[name]:
+            fail(f"{what}: {name} launches by kernel {by_route[name]}, "
+                 f"expected all {counts[name]} on {route}")
+    return by_route
 
 
 def device_profile(torch, run, steps):
@@ -448,10 +579,19 @@ def device_profile(torch, run, steps):
                   / steps, calls_per_step=e.count / steps,
                   us_per_call=e.self_device_time_total / max(1, e.count))
              for e in top[:8]],
-        kernel_us_per_launch={
-            kname: e.self_device_time_total / e.count
-            for e in dev_evts for kname, key in KERNEL_KEYS.items()
-            if key in e.key and e.count})
+        kernel_us_per_launch=kernel_us(dev_evts))
+
+
+def kernel_us(dev_evts):
+    """Device µs per launch of each kernel in a profiler's events, over
+    both routes of the perturbed matmuls."""
+    sums = {}
+    for e in dev_evts:
+        for kname, keys in KERNEL_KEYS.items():
+            if e.count and any(key in e.key for key in keys):
+                us, n = sums.get(kname, (0.0, 0))
+                sums[kname] = (us + e.self_device_time_total, n + e.count)
+    return {kname: us / n for kname, (us, n) in sums.items()}
 
 
 def profile_main_path(torch, rt, tasks, pipeline, card, dev, steps=40):
@@ -583,6 +723,7 @@ def transformer_slice(torch, rt, kernels, card, dev):
         if counts != expected:
             fail(f"transformer {name}: launches {counts} != expected "
                  f"{expected}")
+        by_route = check_routes(kernels, counts, "tc", f"transformer {name}")
         if not bool(torch.isfinite(aux["cost"]).all()):
             fail(f"transformer {name}: a cost went non-finite")
         for k, v in counts.items():
@@ -593,7 +734,7 @@ def transformer_slice(torch, rt, kernels, card, dev):
             layers=LM_LAYERS, steps=LM_STEPS, main_path_steps=main_steps,
             steps_per_s=main_steps / dt, s_per_step=dt / main_steps,
             peak_mem_gb=peak / 1e9, last_cost=aux["cost"][-1].item(),
-            **gate, launches=counts, card=card)
+            **gate, launches=counts, launches_by_kernel=by_route, card=card)
         print(json.dumps({"transformer": name, **results[name]}), flush=True)
         if name == "central_tau1":
             prof = device_profile(
@@ -674,6 +815,7 @@ def full_depth(torch, rt, kernels, card, dev, steps=2):
     expected = lm_expected(cfg.n_layers, "central", steps)
     if counts != expected:
         fail(f"full depth: launches {counts} != expected {expected}")
+    by_route = check_routes(kernels, counts, "tc", "full depth")
     if not all(math.isfinite(c) for c in costs):
         fail("full depth: a cost went non-finite")
     rec = dict(layers=cfg.n_layers, steps=steps, init_s=init_s,
@@ -681,7 +823,7 @@ def full_depth(torch, rt, kernels, card, dev, steps=2):
                params_gb=params_gb,
                init_peak_mem_gb=init_peak_gb,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=counts, card=card)
+               launches=counts, launches_by_kernel=by_route, card=card)
     print(json.dumps({"full_depth": rec}), flush=True)
     del params, state, aux, drv
     torch.cuda.empty_cache()
@@ -757,19 +899,37 @@ def main(argv=None) -> int:
                   "perturbed_matmul_pair": (list(LM_MAIN), "bfloat16", None),
                   "mgd_update_window": (list(LM_MAIN[1:]), "bfloat16", 1),
                   "mgd_update": ([5120, 17408], "bfloat16", 4)}
+    by_kernel = {name: {"tc": 0, "simt": 0}
+                 for name in kernels.MATMUL_WRAPPERS}
+    for rec in [*results.values(), *lm_results.values(), deep]:
+        for name, routes in rec.get("launches_by_kernel", {}).items():
+            for r, v in routes.items():
+                by_kernel[name][r] += v
+    lm_us = lm_results["central_tau1"]["profile"]["kernel_us_per_launch"]
     entries = []
     for name, (source, replaces) in SOURCES.items():
         shape, dname, window = main_shape[name]
         main_rec = next(r for r in recs[name] if r["shape"] == shape
                         and r["dtype"] == dname
                         and r.get("window") == window)
-        entries.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=totals[name], max_abs_err=main_rec["max_abs_err"],
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"], shape=shape, dtype=dname,
-            device_us_per_launch_mlp_path=device_us.get(name), card=card))
+            device_us_per_launch_mlp_path=device_us.get(name),
+            device_us_per_launch_lm_path=lm_us.get(name), card=card)
+        if name in by_kernel:   # the f32 MLP path runs the SIMT kernel
+            entry.update(
+                kernel=main_rec["kernel"], launches_by_kernel=by_kernel[name],
+                simt_source="src/repro_torch/kernels/csrc/perturbed_matmul.cu",
+                simt_ms=main_rec["simt_ms"], cluster=main_rec["cluster"],
+                cluster_ab_ms=main_rec["cluster_ab_ms"],
+                cluster1_ms=main_rec["cluster1_ms"],
+                split_bound_ms=main_rec["split_bound_ms"],
+                f32_out_rel_err=main_rec["f32_out_rel_err"])
+        entries.append(entry)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     if args.out:

@@ -3,7 +3,9 @@ wrappers, plain PyTorch versions (``ref``) and the dispatch (``ops``).
 
 Importing this package builds and loads nothing; the first launch does.
 ``launch_counts``/``reset_launch_counts`` read and clear the wrappers'
-launch counters, which show that a run really went through the kernels.
+launch counters, which show that a run really went through the kernels;
+``route_launch_counts`` splits the perturbed matmuls' counts by the kernel
+``perturbed_matmul.route`` chose (``"tc"`` or ``"simt"``).
 """
 from __future__ import annotations
 
@@ -21,10 +23,23 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+MATMUL_WRAPPERS = ("perturbed_matmul", "perturbed_matmul_pair")
+
+
+def route_launch_counts() -> dict:
+    return {name: {r: getattr(KERNEL_WRAPPERS[name], f"launches_{r}")
+                   for r in perturbed_matmul.ROUTES}
+            for name in MATMUL_WRAPPERS}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for name in MATMUL_WRAPPERS:
+        for r in perturbed_matmul.ROUTES:
+            setattr(KERNEL_WRAPPERS[name], f"launches_{r}", 0)
 
 
 __all__ = ["ops", "ref", "perturbed_matmul", "mgd_update",
-           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
+           "KERNEL_WRAPPERS", "MATMUL_WRAPPERS", "launch_counts",
+           "route_launch_counts", "reset_launch_counts"]

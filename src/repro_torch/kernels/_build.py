@@ -19,7 +19,9 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("perturbed_matmul", "mgd_update")
+# perturbed_matmul_tc finds cuTensorMapEncodeTiled through
+# cudaGetDriverEntryPoint, so no library links -lcuda
+SOURCES = ("perturbed_matmul", "perturbed_matmul_tc", "mgd_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

@@ -10,6 +10,12 @@ Tolerances are relative to the output's scale: the reference's 1e-4 for
 f32, and for bf16 two bf16 ulps (2⁻⁶) — kernel and plain version both sum
 in f32 and round each output once, so they land at most one ulp apart;
 a kernel that dropped θ̃ would miss by ~0.1.  Both updates are bitwise.
+
+The perturbed matmuls have two kernels, and ``perturbed_matmul.route``
+picks one from dtypes and shapes: bf16 x and W with K, N multiples of 8
+take the tensor-core kernel (``"tc"``), everything else the SIMT kernel.
+The tc tests below hold it with bf16 and with f32 outputs (1e-4: its
+split form x·W + amp·(x·S) is exact up to the order of f32 sums).
 """
 import pytest
 import torch
@@ -183,3 +189,151 @@ def test_cuda_transformer_step_launches_and_matches_plain(cuda_device):
     assert kernels.launch_counts() == {
         "perturbed_matmul": 0, "perturbed_matmul_pair": 7 * 2 + 1,
         "mgd_update_window": 13, "mgd_update": 0}
+
+
+TC_SHAPES = [(512, 5120, 1024), (5, 5120, 1032), (130, 5128, 256)]
+
+
+def _bf16_operands(device, m, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    xm = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=device) * 0.1).to(
+        torch.bfloat16)
+    return x, xm, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", TC_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+def test_tc_route_matches_plain(cuda_device, m, k, n, out_dtype):
+    """The tensor-core kernel, single and pair, against the plain version
+    (M free: 5 and 130 rows leave ragged row blocks, N = 1032 a ragged
+    column tile, K = 5128 a ragged K step); each call moves its wrapper's
+    "tc" counter by one and leaves "simt" alone."""
+    from repro_torch.kernels import perturbed_matmul as pm
+    x, xm, w = _bf16_operands(cuda_device, m, k, n, 5)
+    ls = pert.leaf_seed(7, 3, 2)
+    assert pm.route(x, w) == "tc"
+    before = kernels.route_launch_counts()
+    y = ops.perturbed_matmul(x, w, ls, dtheta=0.01, sign=-1.0,
+                             out_dtype=out_dtype)
+    yp, ym = ops.perturbed_matmul_pair(x, xm, w, ls, dtheta=0.01,
+                                       out_dtype=out_dtype)
+    after = kernels.route_launch_counts()
+    r = ops.perturbed_matmul(x, w, ls, dtheta=0.01, sign=-1.0, impl="ref",
+                             out_dtype=out_dtype)
+    rp, rm = ops.perturbed_matmul_pair(x, xm, w, ls, dtheta=0.01,
+                                       impl="ref", out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    for name in ("perturbed_matmul", "perturbed_matmul_pair"):
+        assert after[name] == {"tc": before[name]["tc"] + 1,
+                               "simt": before[name]["simt"]}
+    assert y.dtype == out_dtype and y.shape == (m, n)
+    for a, b in ((y, r), (yp, rp), (ym, rm)):
+        assert _rel_err(a, b) <= TOL[out_dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(130, 5128, 256), (5, 64, 1032)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_out", "f32_out"])
+def test_tc_pair_equals_singles_bitwise(cuda_device, m, k, n, out_dtype):
+    """The pair's x₊ output equals the single with σ = +1 bit for bit, and
+    x₋ the single with σ = −1: each output element sees the same x row,
+    the same W and sign tiles in the same wgmma order and the same
+    epilogue FMA, whichever warpgroup computes it."""
+    x, xm, w = _bf16_operands(cuda_device, m, k, n, 6)
+    ls = pert.leaf_seed(7, 3, 2)
+    yp, ym = ops.perturbed_matmul_pair(x, xm, w, ls, dtheta=0.01,
+                                       out_dtype=out_dtype)
+    assert torch.equal(yp, ops.perturbed_matmul(x, w, ls, dtheta=0.01,
+                                                out_dtype=out_dtype))
+    assert torch.equal(ym, ops.perturbed_matmul(xm, w, ls, dtheta=0.01,
+                                                sign=-1.0,
+                                                out_dtype=out_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt,wdt,k,n,want", [
+    (torch.bfloat16, torch.bfloat16, 128, 256, "tc"),
+    (torch.float32, torch.float32, 128, 256, "simt"),
+    (torch.bfloat16, torch.float32, 128, 256, "simt"),
+    (torch.bfloat16, torch.bfloat16, 127, 256, "simt"),
+    (torch.bfloat16, torch.bfloat16, 128, 252, "simt"),
+])
+def test_route_counters_follow_route(cuda_device, xdt, wdt, k, n, want):
+    """Each launch moves exactly the counter of the kernel ``route`` names,
+    and the totals as before; the SIMT kernel can be asked for at a tc
+    shape, the tc kernel at no other."""
+    from repro_torch.kernels import perturbed_matmul as pm
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((9, k), generator=g, device=cuda_device).to(xdt)
+    w = torch.randn((k, n), generator=g, device=cuda_device).to(wdt)
+    assert pm.route(x, w) == want
+    kernels.reset_launch_counts()
+    ops.perturbed_matmul(x, w, 1, dtheta=0.01)
+    ops.perturbed_matmul_pair(x, x, w, 1, dtheta=0.01)
+    pm.perturbed_matmul(x, w, 1, amp=0.01, kernel="simt")
+    torch.cuda.synchronize()
+    other = "simt" if want == "tc" else "tc"
+    assert kernels.route_launch_counts() == {
+        "perturbed_matmul": {want: 1 + (want == "simt"),
+                             other: int(want == "tc")},
+        "perturbed_matmul_pair": {want: 1, other: 0}}
+    assert kernels.launch_counts()["perturbed_matmul"] == 2
+    if want != "tc":
+        with pytest.raises(ValueError, match="tensor-core kernel takes"):
+            pm.perturbed_matmul(x, w, 1, amp=0.01, kernel="tc")
+
+
+@pytest.mark.gpu
+def test_tc_wrapper_refuses_bad_operands(cuda_device):
+    """A CPU tensor, a non-contiguous one, a dtype neither kernel takes and
+    a base address TMA cannot load from all raise; nothing falls back."""
+    from repro_torch.kernels import perturbed_matmul as pm
+    bf = torch.bfloat16
+    w = torch.zeros((64, 128), device=cuda_device, dtype=bf)
+    x = torch.zeros((8, 64), device=cuda_device, dtype=bf)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pm.perturbed_matmul(x.cpu(), w, 0, amp=0.1, kernel="tc")
+    with pytest.raises(ValueError, match="contiguous"):
+        pm.perturbed_matmul(torch.zeros((64, 8), device=cuda_device,
+                                        dtype=bf).t(), w, 0, amp=0.1)
+    with pytest.raises(TypeError):
+        pm.perturbed_matmul(x.to(torch.float16), w, 0, amp=0.1)
+    with pytest.raises(TypeError):
+        pm.perturbed_matmul_pair(x, x, w.to(torch.float16), 0, dtheta=0.1)
+    shifted = torch.zeros(8 * 64 + 1, device=cuda_device,
+                          dtype=bf)[1:].view(8, 64)
+    assert shifted.is_contiguous() and pm.route(shifted, w) == "tc"
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pm.perturbed_matmul(shifted, w, 0, amp=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(130, 5128, 256), (512, 40, 136),
+                                   (5, 64, 1032)])
+def test_tc_cluster_sizes_agree_bitwise(cuda_device, m, k, n):
+    """A cluster only moves which CTA hashes a sign row and loads a W row:
+    clusters of 1, 2 and 4 CTAs (with padding row blocks where M does not
+    fill them, and shares wholly past K where K < 64) give the same bits."""
+    from repro_torch.kernels import perturbed_matmul as pm
+    x, xm, w = _bf16_operands(cuda_device, m, k, n, 7)
+    ls = pert.leaf_seed(2, 9, 4)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        singles = [pm.perturbed_matmul(x, w, ls, amp=0.01,
+                                       out_dtype=out_dtype, cluster=c)
+                   for c in (1, 2, 4)]
+        pairs = [pm.perturbed_matmul_pair(x, xm, w, ls, dtheta=0.01,
+                                          out_dtype=out_dtype, cluster=c)
+                 for c in (1, 2, 4)]
+        for y in singles[1:]:
+            assert torch.equal(y, singles[0])
+        for yp, ym in pairs[1:]:
+            assert torch.equal(yp, pairs[0][0]) and torch.equal(ym,
+                                                                pairs[0][1])
+        assert torch.equal(pairs[0][0], singles[0])
+    with pytest.raises(ValueError, match="cluster"):
+        pm.perturbed_matmul(x, w, ls, amp=0.01, cluster=3)

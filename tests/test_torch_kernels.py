@@ -96,6 +96,78 @@ def test_perturbed_matmul_pair_equals_two_singles(m, k, n):
     assert torch.equal(yp, y1) and torch.equal(ym, y2)
 
 
+ROUTE_CASES = [
+    # (x dtype, W dtype, M, K, N, route)
+    (torch.bfloat16, torch.bfloat16, 512, 5120, 17408, "tc"),
+    (torch.bfloat16, torch.bfloat16, 5, 5120, 1032, "tc"),
+    (torch.bfloat16, torch.bfloat16, 130, 5128, 256, "tc"),
+    (torch.float32, torch.float32, 512, 5120, 17408, "simt"),
+    (torch.bfloat16, torch.float32, 16, 64, 128, "simt"),
+    (torch.float32, torch.bfloat16, 16, 64, 128, "simt"),
+    (torch.bfloat16, torch.bfloat16, 5, 127, 256, "simt"),
+    (torch.bfloat16, torch.bfloat16, 5, 128, 257, "simt"),
+    (torch.bfloat16, torch.bfloat16, 5, 127, 257, "simt"),
+    (torch.bfloat16, torch.bfloat16, 0, 64, 128, "tc"),
+    (torch.float32, torch.float32, 0, 64, 128, "simt"),
+    (torch.bfloat16, torch.bfloat16, 4, 0, 128, "simt"),
+]
+
+
+@pytest.mark.parametrize("xdt,wdt,m,k,n,want", ROUTE_CASES)
+def test_route_picks_kernel_by_dtype_and_shape(xdt, wdt, m, k, n, want):
+    """bf16 x and W with K, N multiples of 8 take the tensor-core kernel,
+    everything else the SIMT kernel; M (even 0) does not matter, and lead
+    dims of x do not either.  Meta tensors: no data is touched."""
+    from repro_torch.kernels import perturbed_matmul as tpm
+    x = torch.empty((m, k), dtype=xdt, device="meta")
+    w = torch.empty((k, n), dtype=wdt, device="meta")
+    assert tpm.route(x, w) == want
+    assert tpm.route(x.reshape(1, m, k), w) == want
+    tkernels.reset_launch_counts()
+    assert tkernels.route_launch_counts() == {
+        name: {"tc": 0, "simt": 0}
+        for name in ("perturbed_matmul", "perturbed_matmul_pair")}
+
+
+@pytest.mark.parametrize("streams,m,cluster", [
+    (1, 512, 4), (2, 512, 4), (1, 1024, 4), (1, 5, 1), (2, 64, 1),
+    (1, 130, 2), (2, 130, 2), (1, 384, 2), (2, 320, 2)])
+def test_tc_cluster_size(streams, m, cluster):
+    """Clusters of 4 row blocks where they fill up (the LM path's 512
+    tokens), else 2 with at most one padding block, else 1."""
+    from repro_torch.kernels import perturbed_matmul as tpm
+    assert tpm.tc_cluster(streams, m) == cluster
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 48, 80), (5, 127, 256),
+                                   (130, 64, 1032)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_split_form_matches_reference(m, k, n, sign):
+    """The identity the tensor-core kernel relies on: with bf16 x and W,
+    x·W + amp·(x·S) in f32 equals x @ (W + amp·S) — the port's plain
+    version, the JAX package's oracle and its Pallas kernel in interpret
+    mode — within 1e-5 of max|y|; rounding θ̃ to bf16 first does not."""
+    jx, jw, tx, tw = _operands(m, k, n, jnp.bfloat16, seed=6)
+    lseed = tpert.leaf_seed(3, 4, 1)
+    amp = sign * 0.01
+    signs = tops._ref.leaf_signs(lseed, (k, n))
+    split = tx.float() @ tw.float() + amp * (tx.float() @ signs)
+    want_port = tops.perturbed_matmul(tx, tw, lseed, dtheta=0.01, sign=sign,
+                                      out_dtype=torch.float32)
+    want_ref = jref.perturbed_matmul_ref(jx, jw, jnp.uint32(lseed),
+                                         dtheta=0.01, sign=sign,
+                                         out_dtype=jnp.float32)
+    want_pal = jops.perturbed_matmul(jx, jw, jnp.uint32(lseed), dtheta=0.01,
+                                     sign=sign, impl="interpret",
+                                     out_dtype=jnp.float32)
+    scale = max(1.0, want_port.abs().max().item())
+    assert (split - want_port).abs().max().item() <= 1e-5 * scale
+    for want in (want_ref, want_pal):
+        assert _max_err(want, split) <= 1e-5 * scale
+    rounded = tx.float() @ (tw.float() + amp * signs).to(torch.bfloat16).float()
+    assert (rounded - want_port).abs().max().item() > 1e-5 * scale
+
+
 def test_kernel_signs_match_host_generator():
     """Identity x: y = W + Δθ·signs must equal ``generate`` exactly."""
     x = torch.eye(96)
