@@ -9,7 +9,10 @@ Phases, each fatal on failure (nothing is caught):
    power limit, compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one nvcc per source, in parallel) and print ptxas's register,
    shared-memory and spill report (both perturbed-matmul kernels, the
-   SIMT one and the tensor-core one, and the updates).
+   SIMT one and the tensor-core one, and the updates).  From ``cuobjdump
+   -sass`` of the built update library (where the toolkit has it): each
+   update kernel's instructions on the INT32 lanes (``INT_OPCODES``) an
+   element a window step, counted in its J loop, for its bound.
 2. Kernels against their plain PyTorch versions on the card, at the MLP
    path's shapes (x [B,49]·W [49,4], x [B,4]·W [4,4], B ∈ {1, 8}), at a
    ragged shape (5, 127, 257), at one sizing shape, x [256,5120]·W
@@ -29,12 +32,15 @@ Phases, each fatal on failure (nothing is caught):
    passes); both updates bitwise.  Each is timed with CUDA events after
    warm-up, beside its plain version, a library yardstick
    (``torch.matmul`` / ``Tensor.add_`` / ``torch.sub``) and the card's
-   bound for the same work.
+   bound for the same work: for the updates the longest of their bytes
+   at 3.35 TB/s and their sign hash's INT32-lane instructions (phase 1)
+   at 132 SMs × 64 INT32 lanes × 1.98 GHz.
 3. Training, the main path: NIST7x7 49-4-4 with the paper's Δθ = 1e-2,
    η = 0.1, seed 1, fused, through ``repro_torch.driver`` and
    ``make_epoch``: central τ_θ = 1, forward τ_θ = 1 and central replay
    τ_θ = 4.  The launch counters are zeroed before each run and must equal
-   the per-step counts the path implies (all on the SIMT kernel: f32); the
+   the per-step counts the path implies (all on the SIMT kernel: f32; one
+   window-update launch an update for both weight matrices); the
    first 32 C̃ must agree with the same run through the plain versions on
    the card (atol 1e-5); costs must stay finite.  Steps/s and held-out accuracy on 512 samples are
    printed.
@@ -52,13 +58,17 @@ Phases, each fatal on failure (nothing is caught):
    that limit: C̃ = 0 and the kernel route probing another seed's signs.
    The remaining 16 steps are the main path: launch counters zeroed before
    them must equal the path's counts (29 matmul launches a step, every one
-   on the tensor-core kernel, 13 window updates an update); costs stay
-   finite.  Then the ``kernels.ops.mgd_update`` entry point updates every
-   ndim ≥ 2 leaf once (13 launches).  Printed: steps/s, peak device memory, and the device's
-   busy share under ``torch.profiler`` for central.
+   on the tensor-core kernel, one window-update launch an update for all
+   13 matrix leaves); costs stay finite.  Then the grouped window update
+   of the 4-layer tree on its own: one launch, bitwise the plain version's
+   leaf by leaf at J = 1, timed at J = 1 and 4 with the bytes/s it reaches;
+   and the ``kernels.ops.mgd_update`` entry point updates every ndim ≥ 2
+   leaf once (13 launches).  Printed: steps/s, peak device memory, and the
+   device's busy share under ``torch.profiler`` for central.
 6. Full depth: all 40 layers, central, 2 steps, kernel route only, with
-   its launch counts (281 matmul launches a step, all tensor-core), peak
-   device memory and seconds per step.
+   its launch counts (281 matmul launches a step, all tensor-core, one
+   window update), peak device memory and seconds per step; then the
+   grouped window update of all 40 layers timed on its own (J = 1).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither, when
@@ -83,6 +93,16 @@ SRC = ROOT / "src"
 PEAK_BYTES = 3.35e12          # HBM3
 
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # per input type
+# INT32 instructions: 132 SMs × 64 INT32 lanes × 1.98 GHz boost clock
+PEAK_INT32 = 132 * 64 * 1.98e9
+# SASS opcodes (the part before the first dot) that take those lanes.  Not
+# counted, so that the bound stays a least time: the IMAD family, which
+# issues to the FMA pipe (on an H100 the window kernel at J = 4 ran faster
+# than a bound that counted it); VIADD, whose pipe is not documented; the
+# uniform datapath's U… opcodes, which run once a warp.
+INT_OPCODES = {"IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF",
+               "SHL", "SHR", "PRMT", "LEA", "ISETP", "SEL", "IMNMX", "IABS",
+               "BMSK", "BREV", "FLO", "POPC"}
 
 MAIN_SHAPES = [(1, 49, 4), (1, 4, 4), (8, 49, 4), (8, 4, 4)]
 RAGGED = (5, 127, 257)
@@ -175,6 +195,85 @@ def ptxas_summary(reports):
     return [f"ptxas [{lib}] {names[e]}: {info}" for lib, e, info in found]
 
 
+def parse_sass(text):
+    """{mangled function: [(address, opcode, operands)]} from ``cuobjdump
+    -sass`` (which gives branch targets as addresses)."""
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P(?:T|\d)\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def loop_int_ops(ins):
+    """INT32-lane instructions (INT_OPCODES) in the innermost loop with the
+    most LOP3s: the J loop of an update kernel's vector path, one window
+    step of UNROLL vectors a thread.  None if the function has no loop."""
+    loops = []
+    for addr, op, operands in ins:
+        m = re.search(r"0x([0-9a-f]+)", operands)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for c, d in loops)]
+    best = None
+    for a, b in inner:
+        body = [op.split(".")[0] for addr, op, _ in ins if a <= addr <= b]
+        key = (body.count("LOP3"), sum(o in INT_OPCODES for o in body))
+        best = max(best or key, key)
+    return None if best is None else best[1]
+
+
+def update_int_ops(torch, _build, mgd_update, sass_out=None):
+    """INT32-lane instructions per element and window step of each update
+    kernel, from ``cuobjdump -sass`` of the built library:
+    {(kernel, dtype): count}.  Empty, with a note, where the toolkit has
+    no cuobjdump; a SASS without the kernels' J loops fails."""
+    tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        print("phase 1: no cuobjdump beside nvcc: the update kernels' "
+              "bounds count bytes only", flush=True)
+        return {}
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.lib_path("mgd_update"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    if sass_out:
+        sass_out.parent.mkdir(parents=True, exist_ok=True)
+        sass_out.write_text(sass)
+    funcs = parse_sass(sass)
+    names = _demangle(list(funcs))
+    found = {}
+    for fname, ins in funcs.items():
+        dem = names[fname]
+        for kernel in ("mgd_update_window", "mgd_update"):
+            for dname, targ in (("float32", "<float>"),
+                                ("bfloat16", "<__nv_bfloat16>")):
+                mangled = {"float32": "IfE",
+                           "bfloat16": "I13__nv_bfloat16E"}[dname]
+                if (f"{kernel}_kernel{targ}" in dem
+                        or f"{kernel}_kernel{mangled}" in fname):
+                    ops = loop_int_ops(ins)
+                    if ops is None:
+                        fail(f"no J loop in the SASS of {dem}")
+                    per = ops / mgd_update.vector_elems(getattr(torch, dname))
+                    found[(kernel, dname)] = per
+                    print(f"phase 1: {dem}: {ops} INT32-lane instructions a "
+                          f"window step for {ops / per:.0f} elements a "
+                          f"thread, {per:.3g} an element", flush=True)
+    if len(found) != 4:
+        fail(f"SASS of the update kernels: found {sorted(found)}")
+    return found
+
+
 def time_ms(fn, budget_ms: float = 60.0) -> float:
     """Mean device time of ``fn`` over a run of launches, CUDA events."""
     import torch
@@ -196,8 +295,9 @@ def time_ms(fn, budget_ms: float = 60.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, dtype: str = "float32"):
-    t_ops = flops / PEAK_OPS[dtype] * 1e3
+def bound(flops: float, nbytes: float, dtype: str = "float32",
+          int_ops: float = 0.0):
+    t_ops = max(flops / PEAK_OPS[dtype], int_ops / PEAK_INT32) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
 
@@ -218,6 +318,11 @@ def print_rec(name, r):
                  f"{r['split_bound_ms']:.4g}, f32-out rel err "
                  f"{r['f32_out_rel_err']:.3g} (θ̃-in-bf16 control "
                  f"{r['bf16_theta_control_rel_err']:.3g})")
+    if r.get("int_ops_per_element_step"):
+        extra = (f"; copy_ {r['copy_ms']:.4g} ms, bytes bound "
+                 f"{r['bytes_bound_ms']:.4g} ms, "
+                 f"{r['int_ops_per_element_step']:.3g} INT32-lane "
+                 f"instructions an element a step")
     print(f"phase 2: {name}{kernel} {r['shape']} {r['dtype']}{window}: "
           f"{r['ms']:.4g} ms, plain {r['plain_ms']:.4g}, library "
           f"{r['library_ms']:.4g}, bound {r['bound_ms']:.4g} "
@@ -225,8 +330,10 @@ def print_rec(name, r):
           flush=True)
 
 
-def compare_kernels(torch, rt_ops, pert, dev):
-    """Phase 2: every kernel against its plain version on the card."""
+def compare_kernels(torch, rt_ops, pert, dev, int_ops):
+    """Phase 2: every kernel against its plain version on the card;
+    ``int_ops`` holds the update kernels' INT32-lane instructions per
+    element and window step (``update_int_ops``) for their bounds."""
     from repro_torch.kernels import perturbed_matmul as pm
     gen = torch.Generator(device=dev).manual_seed(0)
     lseed = pert.leaf_seed(1, 0, 3)
@@ -298,13 +405,15 @@ def compare_kernels(torch, rt_ops, pert, dev):
                 continue
             windows_done.add((k, n, dname, j))
             recs["mgd_update_window"].append(
-                compare_window(torch, rt_ops, pert, gen, w, j, dname, esz))
+                compare_window(torch, rt_ops, pert, gen, w, j, dname, esz,
+                               int_ops.get(("mgd_update_window", dname))))
         del x, xm, w
         torch.cuda.empty_cache()
     for (k, n, j) in UPDATE_SHAPES:
         for dname in ("float32", "bfloat16"):
             recs["mgd_update"].append(
-                compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname))
+                compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname,
+                               int_ops.get(("mgd_update", dname))))
     return recs
 
 
@@ -398,7 +507,14 @@ def tc_extras(torch, rt_ops, pm, recs, x, xm, w, lseed, dname):
             cluster1_sign_hashes_per_launch=blocks)
 
 
-def compare_window(torch, rt_ops, pert, gen, w, j, dname, esz):
+def update_bound(flops, nbytes, ints, j, numel):
+    """The update kernels' bound: bytes, f32 adds, or the sign hash's
+    INT32-lane instructions (``ints`` an element and step, None if unknown)
+    at PEAK_INT32, whichever takes longest."""
+    return bound(flops, nbytes, int_ops=(ints or 0.0) * j * numel)
+
+
+def compare_window(torch, rt_ops, pert, gen, w, j, dname, esz, ints):
     k, n = w.shape
     seeds = rt_ops.seeds_tensor([pert.leaf_seed(1, t, 3) for t in range(j)],
                                 w.device)
@@ -417,17 +533,22 @@ def compare_window(torch, rt_ops, pert, gen, w, j, dname, esz):
     del got, want
     w2 = w.clone()
     d = torch.randn_like(w)
-    b3 = bound(2.0 * j * k * n, 2 * k * n * esz + 8 * j)
+    o = torch.empty_like(w)
+    b3 = update_bound(1.0 * j * k * n, 2 * k * n * esz + 8 * j, ints, j,
+                      k * n)
     rec = dict(shape=[k, n], dtype=dname, window=j, max_abs_err=0.0,
-               max_rel_err=0.0, ms=time_ms(window),
+               max_rel_err=0.0, int_ops_per_element_step=ints,
+               bytes_bound_ms=(2 * k * n * esz + 8 * j) / PEAK_BYTES * 1e3,
+               ms=time_ms(window),
                plain_ms=time_ms(lambda: window("ref")),
                library_ms=time_ms(lambda: w2.add_(d)),
+               copy_ms=time_ms(lambda: o.copy_(w)),
                bound_ms=b3[0], bound_by=b3[1])
     print_rec("mgd_update_window", rec)
     return rec
 
 
-def compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname):
+def compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname, ints):
     """The sum-then-subtract update against its plain version; the
     yardstick is ``torch.sub`` of a materialized direction (the update's
     bytes plus the direction's read, with no sign generation)."""
@@ -451,13 +572,18 @@ def compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname):
              f"plain version (max abs diff {max_abs})")
     del got, want
     direction = torch.randn((k, n), generator=gen, device=dev).to(dt)
-    b4 = bound((2.0 * j + 2.0) * k * n, 2 * k * n * esz + 8 * j)
+    o = torch.empty_like(w)
+    b4 = update_bound((j + 2.0) * k * n, 2 * k * n * esz + 8 * j, ints, j,
+                      k * n)
     rec = dict(shape=[k, n], dtype=dname, window=j, max_abs_err=max_abs,
+               int_ops_per_element_step=ints,
+               bytes_bound_ms=(2 * k * n * esz + 8 * j) / PEAK_BYTES * 1e3,
                ms=time_ms(update), plain_ms=time_ms(lambda: update("ref")),
                library_ms=time_ms(lambda: torch.sub(w, direction, alpha=10.0)),
+               copy_ms=time_ms(lambda: o.copy_(w)),
                bound_ms=b4[0], bound_by=b4[1])
     print_rec("mgd_update", rec)
-    del w, direction
+    del w, direction, o
     torch.cuda.empty_cache()
     return rec
 
@@ -467,14 +593,14 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
     base = dict(dtheta=1e-2, eta=0.1, seed=1, fused=True)
     runs = {
         "central_tau1": (dict(mode="central"), dict(
-            perturbed_matmul_pair=2 * steps, mgd_update_window=2 * steps,
+            perturbed_matmul_pair=2 * steps, mgd_update_window=steps,
             perturbed_matmul=0, mgd_update=0)),
         "forward_tau1": (dict(mode="forward"), dict(
-            perturbed_matmul=2 * steps, mgd_update_window=2 * steps,
+            perturbed_matmul=2 * steps, mgd_update_window=steps,
             perturbed_matmul_pair=0, mgd_update=0)),
         "central_replay4": (dict(mode="central", replay=True, tau_theta=4),
                             dict(perturbed_matmul_pair=2 * steps,
-                                 mgd_update_window=2 * (steps // 4),
+                                 mgd_update_window=steps // 4,
                                  perturbed_matmul=0, mgd_update=0)),
     }
     xe, ye = tasks.nist7x7_batch(pipeline.sample_generator(99, 0, dev), 512)
@@ -632,7 +758,7 @@ def lm_expected(n_layers, mode, steps, tau_theta=1):
     return dict(
         perturbed_matmul=per_step * steps if mode == "forward" else 0,
         perturbed_matmul_pair=per_step * steps if mode == "central" else 0,
-        mgd_update_window=LM_WINDOW_LEAVES * updates, mgd_update=0)
+        mgd_update_window=updates, mgd_update=0)   # all leaves, one launch
 
 
 def lm_driver(rt, cfg, dev, impl=None, seed=0, **kw):
@@ -745,6 +871,8 @@ def transformer_slice(torch, rt, kernels, card, dev):
                   flush=True)
         del params, state, aux, drv
         torch.cuda.empty_cache()
+    results["group_update"] = group_update(torch, kernels, p0, card,
+                                           f"{LM_LAYERS} layers")
     results["mgd_update_entry"], entry_counts = update_entry_point(
         torch, rt, kernels, p0, replay_ct, card)
     for k, v in entry_counts.items():
@@ -787,6 +915,61 @@ def update_entry_point(torch, rt, kernels, params, coefs, card):
     return rec, counts
 
 
+def group_update(torch, kernels, params, card, what, windows=(1, 4),
+                 check_plain=True):
+    """The grouped window update of every ndim ≥ 2 leaf of ``params``, as
+    the training step calls it: one launch for the whole tree, checked
+    bitwise against the plain version leaf by leaf (J = 1, if
+    ``check_plain``), and timed with CUDA events for each J in ``windows``:
+    ms an update and the bytes/s of one read and one write of the leaves."""
+    from repro_torch.core import perturbations as pert
+    from repro_torch.core.utils import leaf_meta, tree_leaves
+    from repro_torch.kernels import ops
+
+    mats = [(lid, leaf) for (lid, _, _), leaf in
+            zip(leaf_meta(params), tree_leaves(params)) if leaf.dim() >= 2]
+    leaves = [leaf for _, leaf in mats]
+    nbytes = 2 * sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+    rec = dict(leaves=len(leaves), bytes_moved=nbytes, card=card)
+    for j in windows:
+        seeds = ops.seeds_tensor([[pert.leaf_seed(0, s, lid)
+                                   for s in range(16, 16 + j)]
+                                  for lid, _ in mats], leaves[0].device)
+        coefs = torch.tensor([0.75, -0.5, 0.25, -1.0][:j],
+                             device=leaves[0].device)
+
+        def run(impl=None):
+            return ops.mgd_update_window_group(leaves, seeds, coefs,
+                                               alpha=-1e-2, dtheta=1e-2,
+                                               impl=impl)
+
+        kernels.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["mgd_update_window"]
+        if launches != 1:
+            fail(f"{what}: the grouped update launched {launches} times")
+        if check_plain and j == 1:
+            for i, (w, g) in enumerate(zip(leaves, got)):
+                want = ops.mgd_update_window(w, seeds[i], coefs, alpha=-1e-2,
+                                             dtheta=1e-2, impl="ref")
+                if not torch.equal(g, want):
+                    fail(f"{what}: grouped update of leaf {i} "
+                         f"{list(w.shape)} not bitwise the plain version's")
+                del want
+            rec["bitwise_vs_plain_J1"] = True
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"{what}: the grouped update wrote a non-finite value")
+        del got
+        ms = time_ms(run)
+        rec[f"J{j}"] = dict(ms=ms, bytes_per_s=nbytes / (ms * 1e-3),
+                            share_of_peak_bytes=nbytes / PEAK_BYTES
+                            / (ms * 1e-3))
+    print(json.dumps({"group_update": what, **rec}), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def full_depth(torch, rt, kernels, card, dev, steps=2):
     """Phase 6: all 40 layers, central, kernel route only."""
     cfg = rt.get_config("qwen3-14b")
@@ -818,11 +1001,17 @@ def full_depth(torch, rt, kernels, card, dev, steps=2):
     by_route = check_routes(kernels, counts, "tc", "full depth")
     if not all(math.isfinite(c) for c in costs):
         fail("full depth: a cost went non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the window update of the whole model, one launch (not bitwise-checked
+    # here: the plain version's f32 temporaries would not fit beside it)
+    window = group_update(torch, kernels, params, card,
+                          f"{cfg.n_layers} layers", windows=(1,),
+                          check_plain=False)
     rec = dict(layers=cfg.n_layers, steps=steps, init_s=init_s,
                s_per_step=step_s, costs=costs, start_mem_gb=start_gb,
                params_gb=params_gb,
                init_peak_mem_gb=init_peak_gb,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_mem_gb=peak_gb, window_update=window,
                launches=counts, launches_by_kernel=by_route, card=card)
     print(json.dumps({"full_depth": rec}), flush=True)
     del params, state, aux, drv
@@ -873,10 +1062,14 @@ def main(argv=None) -> int:
     print(f"kernels built in {build_s:.1f} s ({_build.BUILD_DIR})")
     for line in ptxas_summary(reports):
         print(line)
+    from repro_torch.kernels import mgd_update
+    int_ops = update_int_ops(
+        torch, _build, mgd_update,
+        args.out.with_suffix(".mgd_update.sass") if args.out else None)
 
     # -- phase 2: kernels against plain, on the card ------------------------
     dev = torch.device("cuda")
-    recs = compare_kernels(torch, ops, pert, dev)
+    recs = compare_kernels(torch, ops, pert, dev, int_ops)
 
     # -- phase 3: MLP training on the card ----------------------------------
     results, totals = train(torch, rt, kernels, tasks, pipeline, card,
@@ -918,6 +1111,7 @@ def main(argv=None) -> int:
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"], shape=shape, dtype=dname,
+            int_ops_per_element_step=main_rec.get("int_ops_per_element_step"),
             device_us_per_launch_mlp_path=device_us.get(name),
             device_us_per_launch_lm_path=lm_us.get(name), card=card)
         if name in by_kernel:   # the f32 MLP path runs the SIMT kernel

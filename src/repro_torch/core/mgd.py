@@ -294,25 +294,23 @@ def build_mgd_step(
         return c_pert - c0, c0, c0
 
     def _fused_leaf_updates(params, seeds_of, coefs, alpha, small_update):
-        """ndim ≥ 2 leaves through the window-update kernel (their seeds
-        reach the device in one copy), small leaves through
-        ``small_update(leaf, lid)``."""
+        """ndim ≥ 2 leaves through one grouped window update (their seeds
+        reach the device in one copy; on the card one launch), small
+        leaves through ``small_update(leaf, lid)``."""
         leaves, treedef = tree_flatten(params)
         metas = leaf_meta(params)
-        mat_ids = [lid for (lid, _, _), leaf in zip(metas, leaves)
-                   if leaf.dim() >= 2]
-        seeds = (kops.seeds_tensor([seeds_of(lid) for lid in mat_ids],
-                                   leaves[0].device) if mat_ids else None)
-        out = []
-        row = 0
-        for (lid, _, _), leaf in zip(metas, leaves):
-            if leaf.dim() >= 2:
-                out.append(kops.mgd_update_window(
-                    leaf, seeds[row], coefs, alpha=alpha, dtheta=cfg.dtheta,
-                    impl=cfg.kernel_impl))
-                row += 1
-            else:
-                out.append(small_update(leaf, lid))
+        mats = [(lid, leaf) for (lid, _, _), leaf in zip(metas, leaves)
+                if leaf.dim() >= 2]
+        updated = []
+        if mats:
+            seeds = kops.seeds_tensor([seeds_of(lid) for lid, _ in mats],
+                                      leaves[0].device)
+            updated = kops.mgd_update_window_group(
+                [leaf for _, leaf in mats], seeds, coefs, alpha=alpha,
+                dtheta=cfg.dtheta, impl=cfg.kernel_impl)
+        updated = iter(updated)
+        out = [next(updated) if leaf.dim() >= 2 else small_update(leaf, lid)
+               for (lid, _, _), leaf in zip(metas, leaves)]
         return tree_unflatten(treedef, out)
 
     def fused_update_tau1(params, n, c_tilde):

@@ -14,7 +14,7 @@ from . import mgd_update, ops, perturbed_matmul, ref
 KERNEL_WRAPPERS = {
     "perturbed_matmul": perturbed_matmul.perturbed_matmul,
     "perturbed_matmul_pair": perturbed_matmul.perturbed_matmul_pair,
-    "mgd_update_window": mgd_update.mgd_update_window,
+    "mgd_update_window": mgd_update.mgd_update_window_group,
     "mgd_update": mgd_update.mgd_update,
 }
 

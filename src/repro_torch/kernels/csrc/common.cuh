@@ -34,6 +34,22 @@ __device__ __forceinline__ float rademacher_sign(uint32_t idx, uint32_t lseed) {
   return (fmix32(idx * kGolden + lseed) >> 31) ? -1.0f : 1.0f;
 }
 
+// Bit 31 of fmix32(x), in place (0 or 0x80000000u).  fmix32's last step,
+// x ^= x >> 16, leaves bit 31 as it is, so it is skipped.
+__device__ __forceinline__ uint32_t sign_bit(uint32_t x) {
+  x ^= x >> 16;
+  x *= kM1;
+  x ^= x >> 13;
+  x *= kM2;
+  return x & 0x80000000u;
+}
+
+// t·(1 − 2·(bit >> 31)) for bit = sign_bit(x): a sign flip, exact, so it
+// equals the f32 product by the ±1 of rademacher_sign bit for bit.
+__device__ __forceinline__ float apply_sign(float t, uint32_t bit) {
+  return __uint_as_float(__float_as_uint(t) ^ bit);
+}
+
 __device__ __forceinline__ float load_f32(const float* p, long long i) {
   return p[i];
 }

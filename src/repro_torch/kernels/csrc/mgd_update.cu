@@ -1,138 +1,355 @@
-// MGD parameter updates on Hopper (sm_90a): two entry points.
+// MGD parameter updates on Hopper (sm_90a): two kernels over one body.
 //
-// 1. Exact-order window update.  Replaces the Pallas TPU kernel
-//    src/repro/kernels/mgd_update.py::mgd_update_window (_window_kernel):
+// 1. Exact-order window update, mgd_update_window_kernel.  Replaces the
+//    Pallas TPU kernel src/repro/kernels/mgd_update.py::mgd_update_window
+//    (_window_kernel, pallas_call at :159):
 //
-//   for j = 0..J−1 in order:  W ← W + S_j·term_j,   term_j = α·(Δθ·coef_j)
-//   S_j[i] = 1 − 2·(fmix32(i·0x9E3779B9 + lseed_j) >> 31), i the row-major
-//   linear index of the element (uint32, wrapping)
+//      for j = 0..J−1 in order:  W ← W + S_j·term_j,  term_j = α·(Δθ·coef_j)
+//      S_j[i] = 1 − 2·(fmix32(i·0x9E3779B9 + lseed_j) >> 31), i the row-major
+//      linear index of the element in its leaf (uint32, wrapping)
 //
-// The terms arrive precomputed in f32 by the wrapper, in the reference's
-// association; the sign multiplies last, so S_j·term_j is exact and the
-// one rounding per step is the add.  __fadd_rn/__fmul_rn keep the compiler
-// from contracting them (an FMA would give the same value here, but the
-// intrinsics make the contract explicit).  The result is bitwise equal to
-// the plain sequential-axpy version.
+//    The kernel forms term_j itself, from coef_j on the device and f32 α and
+//    Δθ by value, in the reference's association (__fmul_rn twice).  The
+//    sign flips term_j's sign bit, which is exact, so the one rounding per
+//    step is the __fadd_rn.  Bitwise equal to the plain sequential-axpy
+//    version, kernels/ref.py::mgd_update_window_ref.
 //
-// What bounds it on an H100: device-memory bytes — one read and one write
-// of W per update whatever J is, against J·(hash + add) integer and f32
-// operations per element, far under the card's compute rates for the J of
-// the MGD window (1 at τ_θ = 1, τ_θ in replay).  The design is one thread
-// per element in a grid-stride loop, W kept in a register across the J
-// loop, seeds and terms read through the read-only cache.
+// 2. Sum-then-subtract update, mgd_update_kernel.  Replaces the Pallas TPU
+//    kernel src/repro/kernels/mgd_update.py::mgd_update (_kernel,
+//    pallas_call at :75):
 //
-// 2. Sum-then-subtract update.  Replaces the Pallas TPU kernel
-//    src/repro/kernels/mgd_update.py::mgd_update (_kernel):
+//      acc = Σ_j S_j·coef_j (f32, j in order),  W ← W − scale·acc,
+//      scale = f32(η/Δθ)
 //
-//   acc = Σ_j coef_j·S_j  (f32, j = 0..J−1 in order),   W ← W − scale·acc,
-//   scale = f32(η/Δθ)
+//    the sum first, then one __fmul_rn and one __fsub_rn (no FMA contracts
+//    them), as kernels/ref.py::mgd_update_ref does.
 //
-// the reference's association: the sum first in an f32 accumulator, then
-// one multiply and one subtract (__fmul_rn/__fsub_rn, so no FMA contracts
-// them).  Same bound and design as the window update: bytes, one read and
-// one write of W, a grid-stride loop over 64-bit element indices with the
-// uint32 sign index (uint32)i = r·N + c mod 2³², the accumulator in a
-// register across the J loop.
+// What bounds them on an H100: at J = 1 the device-memory bytes, one read
+// and one write of W.  As J grows, the integer issue rate: a sign costs
+// about eight integer instructions an element a step (cuobjdump -sass of
+// the J loop), about five of them on the INT32 lanes (the IMADs issue to
+// the FMA pipe), against the card's 64 INT32 lanes an SM (~16.7e12/s over
+// 132 SMs), so the hashing outlasts the bytes from J = 4 on for bf16 and
+// from J = 8 on for f32.
+//
+// Design:
+// * 16-byte vectors (4 f32 or 8 bf16 elements), UNROLL of them a thread,
+//   read and written with the evict-first streaming hints (ld/st.global.cs:
+//   every byte is touched once).  A tile's loads are all issued before its
+//   arithmetic, so a CTA keeps THREADS·UNROLL·16 = 8 KB of loads in flight,
+//   and at 31-40 registers a thread an SM holds 6-8 CTAs, 48-64 KB;
+// * a persistent grid (SM count × resident CTAs an SM, from the occupancy
+//   calculator) walks one flat list of tiles over every leaf of the launch.
+//   The leaves come in a table in the kernel's parameter space (up to
+//   MAX_LEAVES, by value: no copy, no sync), and a CTA finds the leaf of its
+//   next tile by scanning the table's prefix tile offsets forward;
+// * vectors are aligned to the input.  A head of fewer than one vector
+//   before the input's first 16-byte boundary, and a tail after its last
+//   whole vector, take scalar accesses in the leaf's first tile; an output
+//   not aligned like its input takes scalar stores;
+// * the sign is bit 31 after fmix32's second multiply (mgd::sign_bit),
+//   XORed into the f32 addend.  A vector's hash inputs are one per-vector
+//   base plus constants: the index advances by 0x9E3779B9 an element, and
+//   the seed is added once a step;
+// * element offsets are 64-bit, and the uint32 sign index wraps at 2³².
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int UNROLL = 2;                    // vectors a thread per tile
+constexpr int TILE_VECS = THREADS * UNROLL;
+constexpr int VEC_BYTES = 16;
+constexpr int MAX_LEAVES = 64;
+constexpr int MAX_DEVICES = 64;
+
+struct Leaf {
+  const void* in;
+  void* out;
+  long long numel;
+  long long tile0;   // the leaf's first tile in the launch's tile list
+  long long nvec;    // whole vectors from element `head` on
+  int head;          // scalar elements before the input's 16-byte boundary
+  int tail;          // scalar elements after the last whole vector
+  int seeds;         // offset of the leaf's J seeds in lseeds
+  int vec_store;     // the output is 16-byte aligned where the input is
+};
+
+struct Table {
+  Leaf leaf[MAX_LEAVES];
+  long long tiles;
+  int count;
+};
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+
+// element 2k is the low half of word k; bf16 → f32 is exact, and f32 → bf16
+// rounds to nearest even (cvt.rn.bf16x2.f32), as __float2bfloat16 does
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// the f32 addend of step j: the window's α·(Δθ·coef_j), the sum's coef_j
+template <bool kSum>
+__device__ __forceinline__ float addend(const float* __restrict__ coefs, int j,
+                                        float a, float b) {
+  const float c = __ldg(coefs + j);
+  return kSum ? c : __fmul_rn(a, __fmul_rn(b, c));
+}
+
+// the updated value from W and the J steps' result v (the sum's scale is a)
+template <bool kSum>
+__device__ __forceinline__ float finish(float w, float v, float a) {
+  return kSum ? __fsub_rn(w, __fmul_rn(a, v)) : v;
+}
+
+// one element i of leaf f, scalar: the head and the tail
+template <typename T, bool kSum>
+__device__ __forceinline__ void update_element(
+    const Leaf& f, long long i, const int* __restrict__ lseeds,
+    const float* __restrict__ coefs, int J, float a, float b) {
+  const float w = mgd::load_f32(static_cast<const T*>(f.in), i);
+  const uint32_t g = (uint32_t)i * mgd::kGolden;
+  float v = kSum ? 0.0f : w;
+  for (int j = 0; j < J; ++j) {
+    const uint32_t seed = (uint32_t)__ldg(lseeds + f.seeds + j);
+    v = __fadd_rn(v, mgd::apply_sign(addend<kSum>(coefs, j, a, b),
+                                      mgd::sign_bit(g + seed)));
+  }
+  mgd::store_f32(static_cast<T*>(f.out), i, finish<kSum>(w, v, a));
+}
+
+template <typename T, bool kSum>
+__device__ __forceinline__ void update_tiles(
+    const Table& tab, const int* __restrict__ lseeds,
+    const float* __restrict__ coefs, int J, float a, float b) {
+  using V = Vec<T>;
+  constexpr int N = V::N;
+  int l = 0;
+  for (long long t = blockIdx.x; t < tab.tiles; t += gridDim.x) {
+    while (l + 1 < tab.count && tab.leaf[l + 1].tile0 <= t) ++l;
+    const Leaf& f = tab.leaf[l];
+    const T* in = static_cast<const T*>(f.in) + f.head;
+    T* out = static_cast<T*>(f.out) + f.head;
+    const long long k0 = (t - f.tile0) * TILE_VECS + threadIdx.x;
+    uint4 raw[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long k = k0 + (long long)u * THREADS;
+      raw[u] = k < f.nvec ? __ldcs(reinterpret_cast<const uint4*>(in + k * N))
+                          : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float v[UNROLL][N];
+    uint32_t g[UNROLL];   // (uint32)(index of the vector's first element)·G
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (kSum) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) v[u][e] = 0.0f;
+      } else {
+        V::unpack(raw[u], v[u]);
+      }
+      g[u] = (uint32_t)(f.head + (k0 + (long long)u * THREADS) * N) *
+             mgd::kGolden;
+    }
+#pragma unroll 1
+    for (int j = 0; j < J; ++j) {
+      const uint32_t seed = (uint32_t)__ldg(lseeds + f.seeds + j);
+      const float c = addend<kSum>(coefs, j, a, b);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const uint32_t base = g[u] + seed;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          v[u][e] = __fadd_rn(v[u][e], mgd::apply_sign(c, mgd::sign_bit(
+                                           base + (uint32_t)e * mgd::kGolden)));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long k = k0 + (long long)u * THREADS;
+      if (k >= f.nvec) continue;
+      if (kSum) {
+        float w[N];
+        V::unpack(raw[u], w);
+#pragma unroll
+        for (int e = 0; e < N; ++e) v[u][e] = finish<true>(w[e], v[u][e], a);
+      }
+      if (f.vec_store) {
+        __stcs(reinterpret_cast<uint4*>(out + k * N), V::pack(v[u]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) mgd::store_f32(out, k * N + e, v[u][e]);
+      }
+    }
+    if (t == f.tile0) {   // the leaf's scalar head and tail
+      const int i = threadIdx.x;
+      if (i < f.head)
+        update_element<T, kSum>(f, i, lseeds, coefs, J, a, b);
+      else if (i >= THREADS - f.tail)
+        update_element<T, kSum>(f, f.numel - (THREADS - i), lseeds, coefs, J,
+                                a, b);
+    }
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-mgd_update_window_kernel(const T* __restrict__ w, T* __restrict__ out,
+mgd_update_window_kernel(const __grid_constant__ Table tab,
                          const int* __restrict__ lseeds,
-                         const float* __restrict__ terms, int J, long long numel) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < numel;
-       i += stride) {
-    float v = mgd::load_f32(w, i);
-    const uint32_t g = (uint32_t)i * mgd::kGolden;
-    for (int j = 0; j < J; ++j) {
-      const uint32_t h = mgd::fmix32(g + (uint32_t)__ldg(lseeds + j));
-      const float sg = (h >> 31) ? -1.0f : 1.0f;
-      v = __fadd_rn(v, __fmul_rn(sg, __ldg(terms + j)));
-    }
-    mgd::store_f32(out, i, v);
-  }
+                         const float* __restrict__ coefs, int J, float alpha,
+                         float dtheta) {
+  update_tiles<T, false>(tab, lseeds, coefs, J, alpha, dtheta);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-mgd_update_kernel(const T* __restrict__ w, T* __restrict__ out,
-                  const int* __restrict__ lseeds, const float* __restrict__ coefs,
-                  int J, float scale, long long numel) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < numel;
-       i += stride) {
-    const uint32_t g = (uint32_t)i * mgd::kGolden;
-    float acc = 0.0f;
-    for (int j = 0; j < J; ++j) {
-      const uint32_t h = mgd::fmix32(g + (uint32_t)__ldg(lseeds + j));
-      const float sg = (h >> 31) ? -1.0f : 1.0f;
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(coefs + j), sg));
-    }
-    mgd::store_f32(out, i, __fsub_rn(mgd::load_f32(w, i), __fmul_rn(scale, acc)));
+mgd_update_kernel(const __grid_constant__ Table tab,
+                  const int* __restrict__ lseeds,
+                  const float* __restrict__ coefs, int J, float scale) {
+  update_tiles<T, true>(tab, lseeds, coefs, J, scale, 0.0f);
+}
+
+// CTAs of the kernel resident on all SMs of the current device, cached
+template <typename T, bool kSum>
+cudaError_t persistent_grid(int* grid) {
+  static int cached[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!cached[dev]) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (kSum)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mgd_update_kernel<T>, THREADS, 0);
+    else
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mgd_update_window_kernel<T>, THREADS, 0);
+    if (err != cudaSuccess) return err;
+    cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
+  *grid = cached[dev];
+  return cudaSuccess;
 }
 
-long long grid_blocks(long long numel) {
-  const long long blocks = (numel + THREADS - 1) / THREADS;
-  return blocks > 132LL * 16 ? 132LL * 16 : blocks;  // grid-stride beyond 16 per SM
-}
-
-template <typename T>
-cudaError_t launch_sum(const void* w, void* out, const void* lseeds,
-                       const void* coefs, int J, float scale, long long numel,
-                       cudaStream_t stream) {
-  mgd_update_kernel<T><<<(unsigned)grid_blocks(numel), THREADS, 0, stream>>>(
-      static_cast<const T*>(w), static_cast<T*>(out),
-      static_cast<const int*>(lseeds), static_cast<const float*>(coefs), J, scale,
-      numel);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_typed(const void* w, void* out, const void* lseeds,
-                         const void* terms, int J, long long numel,
-                         cudaStream_t stream) {
-  mgd_update_window_kernel<T><<<(unsigned)grid_blocks(numel), THREADS, 0, stream>>>(
-      static_cast<const T*>(w), static_cast<T*>(out),
-      static_cast<const int*>(lseeds), static_cast<const float*>(terms), J, numel);
+template <typename T, bool kSum>
+cudaError_t launch(int count, const void* const* ins, void* const* outs,
+                   const long long* numels, const int* rows,
+                   const int* lseeds, const float* coefs, int J, float a,
+                   float b, cudaStream_t stream) {
+  constexpr int N = Vec<T>::N;
+  Table tab = {};
+  long long tiles = 0;
+  for (int l = 0; l < count; ++l) {
+    const uintptr_t in = reinterpret_cast<uintptr_t>(ins[l]);
+    const uintptr_t out = reinterpret_cast<uintptr_t>(outs[l]);
+    if (numels[l] <= 0 || rows[l] < 0 || in % sizeof(T) || out % sizeof(T))
+      return cudaErrorInvalidValue;
+    Leaf& f = tab.leaf[l];
+    f.in = ins[l];
+    f.out = outs[l];
+    f.numel = numels[l];
+    const long long head = (long long)((VEC_BYTES - in % VEC_BYTES) %
+                                       VEC_BYTES / sizeof(T));
+    f.head = (int)(head < f.numel ? head : f.numel);
+    f.nvec = (f.numel - f.head) / N;
+    f.tail = (int)(f.numel - f.head - f.nvec * N);
+    f.seeds = rows[l] * J;
+    f.vec_store = (out - in) % VEC_BYTES == 0;
+    f.tile0 = tiles;
+    tiles += f.nvec > 0 ? (f.nvec + TILE_VECS - 1) / TILE_VECS : 1;
+  }
+  tab.tiles = tiles;
+  tab.count = count;
+  int grid = 0;
+  const cudaError_t err = persistent_grid<T, kSum>(&grid);
+  if (err != cudaSuccess) return err;
+  if (grid > tiles) grid = (int)tiles;
+  if (kSum)
+    mgd_update_kernel<T><<<grid, THREADS, 0, stream>>>(tab, lseeds, coefs, J,
+                                                      a);
+  else
+    mgd_update_window_kernel<T><<<grid, THREADS, 0, stream>>>(
+        tab, lseeds, coefs, J, a, b);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (bound with ctypes).  w/out: `numel` contiguous elements of
-// dtype w_dtype (0 f32, 1 bf16) on the current device; lseeds: [J] int32
-// holding the uint32 seed bit patterns; terms: [J] f32.  Launches on
+// C interface (bound with ctypes).  One launch updates `count` leaves (1 to
+// MAX_LEAVES) of dtype w_dtype (0 f32, 1 bf16), out of place: leaf l has
+// numels[l] contiguous elements at ins[l], written to outs[l], and its J
+// seeds in row rows[l] of lseeds ([rows, J] int32 holding the uint32 bit
+// patterns); coefs is [J] f32.  kind 0 is the window update (a = f32 α,
+// b = f32 Δθ), kind 1 the sum-then-subtract update (a = f32 η/Δθ).  All
+// pointers but the host arrays are on the current device.  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
-extern "C" int mgd_update_window_launch(const void* w, void* out, const void* lseeds,
-                                        const void* terms, int J, long long numel,
-                                        int w_dtype, void* stream) {
-  if (numel <= 0 || J < 0) return (int)cudaErrorInvalidValue;
+extern "C" int mgd_update_group_launch(int kind, int count,
+                                       const void* const* ins,
+                                       void* const* outs,
+                                       const long long* numels, const int* rows,
+                                       const void* lseeds, const void* coefs,
+                                       int J, float a, float b, int w_dtype,
+                                       void* stream) {
+  if (count < 1 || count > MAX_LEAVES || J < 0 || (kind != 0 && kind != 1))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* s = static_cast<const int*>(lseeds);
+  const float* c = static_cast<const float*>(coefs);
   if (w_dtype == mgd::kF32)
-    return (int)launch_typed<float>(w, out, lseeds, terms, J, numel, st);
+    return (int)(kind ? launch<float, true>(count, ins, outs, numels, rows,
+                                            s, c, J, a, b, st)
+                      : launch<float, false>(count, ins, outs, numels, rows,
+                                             s, c, J, a, b, st));
   if (w_dtype == mgd::kBF16)
-    return (int)launch_typed<__nv_bfloat16>(w, out, lseeds, terms, J, numel, st);
+    return (int)(kind ? launch<__nv_bfloat16, true>(count, ins, outs, numels,
+                                                    rows, s, c, J, a, b, st)
+                      : launch<__nv_bfloat16, false>(count, ins, outs, numels,
+                                                     rows, s, c, J, a, b, st));
   return (int)cudaErrorInvalidValue;
 }
 
-// C interface of the sum-then-subtract update: as above, with coefs [J] f32
-// (the C̃ of each window step) and scale = f32(η/Δθ).
-extern "C" int mgd_update_launch(const void* w, void* out, const void* lseeds,
-                                 const void* coefs, int J, float scale,
-                                 long long numel, int w_dtype, void* stream) {
-  if (numel <= 0 || J < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_dtype == mgd::kF32)
-    return (int)launch_sum<float>(w, out, lseeds, coefs, J, scale, numel, st);
-  if (w_dtype == mgd::kBF16)
-    return (int)launch_sum<__nv_bfloat16>(w, out, lseeds, coefs, J, scale, numel, st);
-  return (int)cudaErrorInvalidValue;
+// elements a thread updates per step of the J loop (UNROLL vectors)
+extern "C" int mgd_update_vector_elems(int w_dtype) {
+  return UNROLL * (w_dtype == mgd::kBF16 ? Vec<__nv_bfloat16>::N
+                                         : Vec<float>::N);
 }
 
 extern "C" const char* mgd_update_error_string(int err) {

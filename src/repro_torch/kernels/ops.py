@@ -107,17 +107,42 @@ def mgd_update_window(w, lseeds, coefs, *, alpha, dtheta, impl=None):
     ``lseeds`` is a [J] int32 tensor of uint32 bit patterns (see
     ``seeds_tensor``; the plain version also takes host ints), ``coefs`` a
     [J] float32 tensor.  Any ndim ≥ 2 leaf is viewed row-major as a matrix.
+    On the card this is a group of one (``mgd_update_window_group``).
     """
-    shape = w.shape
-    w2 = _as_matrix(w)
     if resolve_impl(impl, w) == "ref":
         return _ref.mgd_update_window_ref(
-            w2, lseeds, coefs, alpha=alpha, dtheta=dtheta).reshape(shape)
+            _as_matrix(w), lseeds, coefs, alpha=alpha,
+            dtheta=dtheta).reshape(w.shape)
     if not isinstance(lseeds, torch.Tensor):
         lseeds = seeds_tensor(list(lseeds), w.device)
-    # the reference's association: α·(Δθ·coef_j), in f32
-    terms = f32(alpha) * (f32(dtheta) * coefs.float())
-    return _mu.mgd_update_window(w2.contiguous(), lseeds, terms).reshape(shape)
+    return mgd_update_window_group([w], lseeds.reshape(1, -1), coefs,
+                                   alpha=alpha, dtheta=dtheta, impl=impl)[0]
+
+
+def mgd_update_window_group(leaves, lseeds, coefs, *, alpha, dtheta,
+                            impl=None):
+    """``mgd_update_window`` of every leaf in ``leaves`` (ndim ≥ 2 each),
+    with the seeds of leaf l in row l of ``lseeds`` [L, J] (an int32 tensor
+    of uint32 bit patterns, or host ints); returns the updated leaves.
+
+    On the card one launch updates up to ``mgd_update.MAX_LEAVES`` leaves
+    of a dtype, and the kernel forms each term α·(Δθ·coefs[j]) in f32 in
+    the reference's association; the plain version is the per-leaf loop.
+    """
+    leaves = list(leaves)
+    if not leaves:
+        return []
+    if resolve_impl(impl, leaves[0]) == "ref":
+        return [mgd_update_window(w, lseeds[i], coefs, alpha=alpha,
+                                  dtheta=dtheta, impl="ref")
+                for i, w in enumerate(leaves)]
+    if not isinstance(lseeds, torch.Tensor):
+        lseeds = seeds_tensor([list(row) for row in lseeds],
+                              leaves[0].device)
+    outs = _mu.mgd_update_window_group(
+        [_as_matrix(w).contiguous() for w in leaves], lseeds,
+        coefs.float().contiguous(), alpha=alpha, dtheta=dtheta)
+    return [o.reshape(w.shape) for o, w in zip(outs, leaves)]
 
 
 def mgd_update(w, lseeds, coefs, *, eta, dtheta, impl=None):

@@ -17,6 +17,8 @@ take the tensor-core kernel (``"tc"``), everything else the SIMT kernel.
 The tc tests below hold it with bf16 and with f32 outputs (1e-4: its
 split form x·W + amp·(x·S) is exact up to the order of f32 sums).
 """
+import math
+
 import pytest
 import torch
 
@@ -98,6 +100,96 @@ def test_cuda_mgd_update_window_bitwise(cuda_device, shape, j, dtype):
     assert torch.equal(got, want)
 
 
+# leaves of the grouped update: (shape, elements of storage before the view)
+# — heads of 1, 3 and 5 elements before a 16-byte boundary, numels that are
+# not multiples of 8, and a tiny leaf beside the LM's [5120, 17408]
+GROUP_LEAVES = [((3, 40, 17), 1), ((49, 4), 3), ((1, 7), 5), ((5, 13), 0),
+                ((2, 3), 2), ((5120, 17408), 0), ((127, 257), 3)]
+
+
+def _offset_leaves(device, dtype, leaves, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for shape, offset in leaves:
+        n = math.prod(shape)
+        base = torch.randn(n + 8, generator=g, device=device).to(dtype)
+        out.append(base[offset:offset + n].view(shape))
+    return out
+
+
+def _group_seeds(device, n_leaves, j):
+    return ops.seeds_tensor([[pert.leaf_seed(3, t, lid) for t in range(j)]
+                             for lid in range(n_leaves)], device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j", [1, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_cuda_window_group_bitwise(cuda_device, j, dtype):
+    """One launch updates every leaf of the list, whatever its storage
+    offset and length, bitwise equal to the plain version's per-leaf loop."""
+    leaves = _offset_leaves(cuda_device, dtype, GROUP_LEAVES, j)
+    assert [w.storage_offset() for w in leaves] == [o for _, o in
+                                                    GROUP_LEAVES]
+    seeds = _group_seeds(cuda_device, len(leaves), j)
+    coefs = torch.randn((j,), device=cuda_device)
+    before = kernels.launch_counts()["mgd_update_window"]
+    got = ops.mgd_update_window_group(leaves, seeds, coefs, alpha=-10.0,
+                                      dtheta=0.01)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mgd_update_window"] == before + 1
+    want = ops.mgd_update_window_group(leaves, seeds, coefs, alpha=-10.0,
+                                       dtheta=0.01, impl="ref")
+    for w, a, b in zip(leaves, got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert not torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j", [1, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_cuda_mgd_update_unaligned_and_ragged(cuda_device, j, dtype):
+    """The sum-then-subtract update through its entry point on the same
+    leaves: one launch a leaf, bitwise."""
+    leaves = _offset_leaves(cuda_device, dtype, GROUP_LEAVES, 10 + j)
+    seeds = _group_seeds(cuda_device, len(leaves), j)
+    coefs = torch.randn((j,), device=cuda_device)
+    before = kernels.launch_counts()["mgd_update"]
+    for i, w in enumerate(leaves):
+        got = ops.mgd_update(w, seeds[i], coefs, eta=0.1, dtheta=0.01)
+        want = ops.mgd_update(w, seeds[i], coefs, eta=0.1, dtheta=0.01,
+                              impl="ref")
+        torch.cuda.synchronize()
+        assert got.shape == w.shape and torch.equal(got, want)
+    assert kernels.launch_counts()["mgd_update"] == before + len(leaves)
+
+
+@pytest.mark.gpu
+def test_cuda_window_group_past_64_leaves_and_mixed_dtypes(cuda_device):
+    """70 f32 leaves take two launches (64 + 6) and 3 bf16 leaves a third;
+    every leaf bitwise."""
+    from repro_torch.kernels import mgd_update
+    assert mgd_update.MAX_LEAVES == 64
+    shapes = [((2 + i % 5, 3 + i % 13), i % 4) for i in range(70)]
+    leaves = (_offset_leaves(cuda_device, torch.float32, shapes, 1)
+              + _offset_leaves(cuda_device, torch.bfloat16,
+                               [((4, 9), 1), ((8, 8), 0), ((1, 3), 2)], 2))
+    seeds = _group_seeds(cuda_device, len(leaves), 2)
+    coefs = torch.tensor([0.75, -0.5], device=cuda_device)
+    before = kernels.launch_counts()["mgd_update_window"]
+    got = ops.mgd_update_window_group(leaves, seeds, coefs, alpha=1.0,
+                                      dtheta=0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mgd_update_window"] == before + 3
+    want = ops.mgd_update_window_group(leaves, seeds, coefs, alpha=1.0,
+                                       dtheta=0.5, impl="ref")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_bad_operands(cuda_device):
     from repro_torch.kernels import perturbed_matmul
@@ -159,9 +251,10 @@ def test_cuda_update_kernels_index_wraps_past_2_32(cuda_device):
 def test_cuda_transformer_step_launches_and_matches_plain(cuda_device):
     """A 2-layer Qwen3-shaped model (narrow widths, bf16) on the card: one
     central fused step launches 7 pair kernels per layer plus the head and
-    13 window updates; its C± match the plain route within 2⁻¹¹·|C| (the
-    limit ``chip_smoke.py`` holds C̃ to), which the unperturbed cost C₀
-    misses, so a kernel that dropped θ̃ would fail."""
+    one window update for all 13 matrix leaves; its C± match the plain
+    route within 2⁻¹¹·|C| (the limit ``chip_smoke.py`` holds C̃ to), which
+    the unperturbed cost C₀ misses, so a kernel that dropped θ̃ would
+    fail."""
     import repro_torch as rt
     cfg = rt.get_smoke_config("qwen3-14b").replace(dtype="bfloat16",
                                                    d_model=256, d_ff=512,
@@ -188,7 +281,7 @@ def test_cuda_transformer_step_launches_and_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "perturbed_matmul": 0, "perturbed_matmul_pair": 7 * 2 + 1,
-        "mgd_update_window": 13, "mgd_update": 0}
+        "mgd_update_window": 1, "mgd_update": 0}
 
 
 TC_SHAPES = [(512, 5120, 1024), (5, 5120, 1032), (130, 5128, 256)]

@@ -16,6 +16,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import kernels as tkernels
 from repro_torch.core import perturbations as tpert
+from repro_torch.core.utils import f32
 from repro_torch.kernels import ops as tops
 
 SHAPES_MM = [
@@ -230,6 +231,90 @@ def test_mgd_update_window_host_int_seeds_equal_tensor_seeds():
     assert torch.equal(a, b)
 
 
+# --- the grouped window update: one launch for every matrix leaf -------------
+
+GROUP_SHAPES = [(3, 40, 17), (49, 4), (1, 7), (5, 13)]   # 13·5 = 65: odd
+
+
+def _group_inputs(dtype, steps, seed=0):
+    rng = np.random.default_rng(seed)
+    leaves = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              .to(dtype) for s in GROUP_SHAPES]
+    lseeds = [[tpert.leaf_seed(seed, t, lid) for t in steps]
+              for lid in range(len(leaves))]
+    raw = rng.standard_normal((len(steps),)).astype(np.float32)
+    return leaves, lseeds, torch.from_numpy(raw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("steps", [[5], [5, 6, 7, 8]])
+@pytest.mark.parametrize("alpha", [-0.01, 1.0])      # −η at τ_θ = 1; replay
+def test_window_group_plain_equals_per_leaf(dtype, steps, alpha):
+    """The grouped entry's plain route equals one ``mgd_update_window`` call
+    per leaf bit for bit, over a 3-D stacked leaf, [49,4], [1,7] and an
+    odd numel, with the seeds of leaf l in row l."""
+    leaves, lseeds, coefs = _group_inputs(dtype, steps)
+    seeds = tops.seeds_tensor(lseeds, "cpu")
+    assert seeds.shape == (len(leaves), len(steps))
+    got = tops.mgd_update_window_group(leaves, seeds, coefs, alpha=alpha,
+                                       dtheta=0.1)
+    for i, (w, g) in enumerate(zip(leaves, got)):
+        want = tops.mgd_update_window(w, seeds[i], coefs, alpha=alpha,
+                                      dtheta=0.1)
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, want)
+        assert not torch.equal(g, w)
+
+
+def test_window_group_matches_jax_reference():
+    """Each leaf of the group against ``repro.kernels.ref``'s window update
+    (f32, J = 4, host-int seeds): bitwise."""
+    leaves, lseeds, coefs = _group_inputs(torch.float32, [2, 3, 4, 5], seed=4)
+    got = tops.mgd_update_window_group(leaves, lseeds, coefs, alpha=-0.01,
+                                       dtheta=0.1)
+    for w, row, g in zip(leaves, lseeds, got):
+        want = jref.mgd_update_window_ref(
+            jnp.asarray(w.reshape(-1, w.shape[-1]).numpy()),
+            jnp.asarray(np.array(row, np.uint32)), jnp.asarray(coefs.numpy()),
+            alpha=-0.01, dtheta=0.1)
+        np.testing.assert_array_equal(g.reshape(-1, w.shape[-1]).numpy(),
+                                      np.asarray(want))
+
+
+def test_window_group_refuses_vectors_and_takes_no_leaves():
+    with pytest.raises(ValueError, match="ndim >= 2"):
+        tops.mgd_update_window_group([torch.zeros(4)], [[0]], torch.ones(1),
+                                     alpha=1.0, dtheta=0.1)
+    assert tops.mgd_update_window_group([], [], torch.ones(1), alpha=1.0,
+                                        dtheta=0.1) == []
+
+
+@pytest.mark.parametrize("alpha,dtheta", [(-0.01, 0.1), (1.0, 1e-2),
+                                          (-0.1, 3e-3)])
+def test_window_terms_in_kernel_association(alpha, dtheta):
+    """The kernel forms term_j = f32(α)·(f32(Δθ)·c_j) with two rounded f32
+    multiplies (numpy's f32 arithmetic here) and applies the sign by
+    flipping the term's sign bit.  That reproduces, bit for bit, the terms
+    the wrapper used to compute in torch, and W + S·term equals the plain
+    version's W + α·((Δθ·S)·c) for either sign."""
+    rng = np.random.default_rng(9)
+    coefs = (rng.standard_normal(4096) * 10.0 ** rng.uniform(
+        -8, 4, 4096)).astype(np.float32)
+    a, d = np.float32(alpha), np.float32(dtheta)
+    kernel = a * (d * coefs)
+    assert kernel.dtype == np.float32
+    torch_terms = (f32(alpha) * (f32(dtheta) * torch.from_numpy(coefs)))
+    np.testing.assert_array_equal(kernel, torch_terms.numpy())
+    w = rng.standard_normal(4096).astype(np.float32)
+    bits = kernel.view(np.uint32)
+    for sign in (1.0, -1.0):
+        flipped = (bits ^ np.uint32(0x80000000 if sign < 0 else 0)
+                   ).view(np.float32)
+        plain = w + a * ((d * np.float32(sign)) * coefs)
+        np.testing.assert_array_equal(w + flipped, plain)
+
+
 def test_dispatch_rules_on_cpu():
     x = torch.zeros((2, 3))
     w = torch.zeros((3, 4))
@@ -256,8 +341,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         perturbed_matmul.perturbed_matmul(x, torch.zeros((3, 4)), 0, amp=0.1)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        mgd_update.mgd_update_window(x, torch.zeros(1, dtype=torch.int32),
-                                     torch.zeros(1))
+        mgd_update.mgd_update_window_group(
+            [x], torch.zeros((1, 1), dtype=torch.int32), torch.zeros(1),
+            alpha=1.0, dtheta=1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         mgd_update.mgd_update(x, torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1), scale=1.0)
