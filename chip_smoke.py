@@ -69,6 +69,34 @@ Phases, each fatal on failure (nothing is caught):
    its launch counts (281 matmul launches a step, all tensor-core, one
    window update), peak device memory and seconds per step; then the
    grouped window update of all 40 layers timed on its own (J = 1).
+7. An imperfect device at full width: phase 5's model (4 layers, bf16,
+   central τ_θ = 1) through ``DriftingPlant(NoisyPlant(σ_C = 1e-4,
+   σ_θ = 0.1), mode="walk", drift_rate=1e-3)``.  The first 3 steps are
+   C̃-gated against the plain route as in phase 5 (the two probes read
+   through the device's readout, with its cost noise); 2 more steps are
+   the counted main path, whose launches must equal phase 5's counts
+   (the device adds none).  Then the noisy write and the drift transition
+   are timed alone, the share of bf16 elements a write moves is printed,
+   one write's ~2.9 G draws must have |mean| and |std − 1| below 1e-3,
+   and the first and last 2²⁰ draws of every leaf made on the card must
+   equal the CPU's (bits bitwise, normals within ``rng.NORMAL_ULPS``).
+   Printed: seconds a step, a noisy write and a drift; peak memory.
+8. Resume at full width: the same model and device, kernel route, 3
+   steps uninterrupted against 2 steps with a checkpoint (in a temporary
+   directory, removed afterwards; fails if the disk lacks the space) and
+   a fresh driver resuming to 3: params and state bitwise equal.
+   Printed: checkpoint bytes, free disk, and the save and restore
+   seconds that ``train_mgd`` reports (``TrainResult.checkpoint_s``).
+9. The paper's model: NIST7x7 49-4-4 fused central τ_θ = 1 through
+   ``noisy_mlp_plant(σ_C = 1e-4, σ_θ = 0.01, σ_a = 0.15)`` and
+   ``quantized_mlp_plant(bits=8, adc_bits=8, adc_mode="stochastic")``,
+   32 steps, each step's kernel route against the plain route from the
+   same state (C̃ to 1e-5 and params to 1e-4, or one ADC / DAC LSB);
+   a drifting noisy device with recalibration every 8 steps, kernel
+   route against plain route over 32 steps; then 200 ticks of
+   ``driver("analog", ...)`` on the card against the CPU (1e-5).
+
+Every phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither, when
@@ -761,27 +789,31 @@ def lm_expected(n_layers, mode, steps, tau_theta=1):
         mgd_update_window=updates, mgd_update=0)   # all leaves, one launch
 
 
-def lm_driver(rt, cfg, dev, impl=None, seed=0, **kw):
+def lm_driver(rt, cfg, dev, impl=None, seed=0, plant=None, **kw):
     return rt.driver(
         "discrete", rt.DriverConfig(dtheta=1e-2, eta=1e-2, seed=seed,
                                     fused=True, kernel_impl=impl, **kw),
-        lambda p, b: rt.model_loss(p, cfg, b),
-        probe_fn=rt.make_transformer_probe_fn(cfg), device=dev)
+        None if plant else (lambda p, b: rt.model_loss(p, cfg, b)),
+        plant=plant, probe_fn=rt.make_transformer_probe_fn(cfg), device=dev)
 
 
-def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw):
-    """The first LM_CT_STEPS steps of the kernel run, each probed again
+def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
+                 plant=None, read_plant=None):
+    """The first ``steps`` steps of the kernel run, each probed again
     from the same params, state and batch through the plain route and, as
     a control, through the kernel route with another seed's signs.  Fails
     unless the kernel's C̃ is within LM_CT_REL of the step's cost of the
     plain route's, and both controls (C̃ = 0, the other seed) miss it.
-    Returns the params and state after those steps, and the record."""
-    drv = lm_driver(rt, cfg, dev, **kw)
-    ref = lm_driver(rt, cfg, dev, "ref", **kw)
-    other = lm_driver(rt, cfg, dev, seed=1, **kw)
+    With a ``plant``, the run writes through it and the two probes read
+    through ``read_plant``, its readout alone (the same cost noise; their
+    writes are discarded).  Returns the params and state after those
+    steps, and the record."""
+    drv = lm_driver(rt, cfg, dev, plant=plant, **kw)
+    ref = lm_driver(rt, cfg, dev, "ref", plant=read_plant, **kw)
+    other = lm_driver(rt, cfg, dev, seed=1, plant=read_plant, **kw)
     params, state = p0, drv.init(p0)
     cts, plain_cts, other_cts, costs = [], [], [], []
-    for n in range(LM_CT_STEPS):
+    for n in range(steps):
         batch = sample(n)
         plain_cts.append(ref.step(params, state, batch)[2]["c_tilde"].item())
         other_cts.append(
@@ -804,7 +836,7 @@ def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw):
                control_other_seed_err_in_tols=worst(other_cts))
     torch.cuda.synchronize()
     if not rec["c_tilde_err_in_tols"] <= 1.0:
-        fail(f"transformer {kw}: first {LM_CT_STEPS} C̃ {cts} differ from "
+        fail(f"transformer {kw}: first {steps} C̃ {cts} differ from "
              f"the plain route's {plain_cts} beyond {tols}")
     for control in ("control_zero", "control_other_seed"):
         if not rec[control + "_err_in_tols"] > 1.0:
@@ -1019,6 +1051,368 @@ def full_depth(torch, rt, kernels, card, dev, steps=2):
     return rec, counts
 
 
+# -- phases 7-9: imperfect devices ------------------------------------------
+
+# phase 7's device: σ_C = 1e-4, σ_θ = 0.1 (std σ_θ·Δθ = 1e-3, about eight
+# bf16 ulps of a weight of 0.02, so the noise lands), a random walk of
+# 1e-3 a write
+LM_SIGMA_C, LM_SIGMA_THETA, LM_DRIFT = 1e-4, 0.1, 1e-3
+PLANT_CT_STEPS = 3
+PLANT_MAIN_STEPS = 2
+CHECK_ELEMS = 1 << 20       # card-vs-CPU draws: first and last of each leaf
+DRAW_STAT_TOL = 1e-3        # |mean|, |std − 1| of one write's draws
+MLP_SIZES = (49, 4, 4)
+MLP_STEPS = 32
+MLP_RECAL = 8
+ANALOG_TICKS = 200
+# Algorithm 2 on the card against the CPU: torch's CUDA and CPU sigmoid,
+# matmul and sin round apart in the last ulps
+ANALOG_ATOL = 1e-5
+
+
+def lm_plant(rt, cfg):
+    """Phase 7's device: a drifting device with noisy writes and reads."""
+    from repro_torch.hardware import DriftingPlant, NoisyPlant
+
+    inner = NoisyPlant(lambda p, b: rt.model_loss(p, cfg, b),
+                       cost_noise=LM_SIGMA_C, write_noise=LM_SIGMA_THETA,
+                       dtheta=1e-2, seed=0)
+    return DriftingPlant(inner, mode="walk", drift_rate=LM_DRIFT)
+
+
+def max_ulps(torch, a, b):
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()
+            ).abs().max().item()
+
+
+def draw_checks(torch, rt_rng, plant, params, step, dev):
+    """One write's draws over every leaf: their mean and std over all
+    elements (f64 sums), and the first and last CHECK_ELEMS of each leaf
+    made on the card against the same made on the CPU (bits bitwise,
+    normals within ``rng.NORMAL_ULPS``)."""
+    from repro_torch.core.utils import tree_leaves
+
+    s1 = torch.zeros((), dtype=torch.float64, device=dev)
+    s2 = torch.zeros((), dtype=torch.float64, device=dev)
+    n_all, worst_ulps, bit_slices = 0, 0, 0
+    t0 = time.perf_counter()
+    for i, leaf in enumerate(tree_leaves(params), start=1):
+        key = plant.write_key(i, step)
+        n = leaf.numel()
+        for _, _, xi in rt_rng.normal_chunks(key, n, dev):
+            s1 += torch.sum(xi, dtype=torch.float64)
+            s2 += torch.sum(xi.double().square())
+        n_all += n
+    mean = (s1 / n_all).item()
+    std = math.sqrt((s2 / n_all).item() - mean * mean)
+    stats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, leaf in enumerate(tree_leaves(params), start=1):
+        key = plant.write_key(i, step)
+        n = leaf.numel()
+        for a, b in {(0, min(n, CHECK_ELEMS)), (max(0, n - CHECK_ELEMS), n)}:
+            if not torch.equal(rt_rng.bits_slice(key, a, b, dev).cpu(),
+                               rt_rng.bits_slice(key, a, b, "cpu")):
+                fail(f"threefry bits of leaf {i} [{a}, {b}) differ between "
+                     f"the card and the CPU")
+            worst_ulps = max(worst_ulps, max_ulps(
+                torch, rt_rng.normal_slice(key, a, b, dev).cpu(),
+                rt_rng.normal_slice(key, a, b, "cpu")))
+            bit_slices += 1
+    if worst_ulps > rt_rng.NORMAL_ULPS:
+        fail(f"normals differ between the card and the CPU by {worst_ulps} "
+             f"ulps > {rt_rng.NORMAL_ULPS}")
+    if not (abs(mean) < DRAW_STAT_TOL and abs(std - 1) < DRAW_STAT_TOL):
+        fail(f"one write's {n_all} draws: mean {mean}, std {std}")
+    return dict(draws=n_all, draw_mean=mean, draw_std=std,
+                draw_stats_s=stats_s, card_vs_cpu_slices=bit_slices,
+                card_vs_cpu_bits_equal=True,
+                card_vs_cpu_normal_max_ulps=worst_ulps,
+                card_vs_cpu_s=time.perf_counter() - t0)
+
+
+def imperfect_device(torch, rt, kernels, card, dev):
+    """Phase 7: Qwen3-14B at full width, LM_LAYERS layers, bf16, central
+    τ_θ = 1 through a drifting device with noisy writes and reads: the
+    first PLANT_CT_STEPS steps C̃-gated against the plain route, then
+    PLANT_MAIN_STEPS counted steps; the noisy write and the drift
+    transition timed alone; one write's draws checked."""
+    from repro_torch.core import rng as rt_rng
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.hardware import NoisyPlant
+
+    cfg = rt.get_config("qwen3-14b").replace(n_layers=LM_LAYERS)
+    sample = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)
+    p0 = rt.model_init(cfg, 0, device=dev)
+    plant = lm_plant(rt, cfg)
+    reads = NoisyPlant(lambda p, b: rt.model_loss(p, cfg, b),
+                       cost_noise=LM_SIGMA_C, seed=plant.inner.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, drv, gate = c_tilde_gate(
+        torch, rt, cfg, dev, sample, p0, dict(mode="central"),
+        steps=PLANT_CT_STEPS, plant=plant, read_plant=reads)
+    del p0
+    print(json.dumps({"imperfect_c_tilde": "central_tau1", **gate}),
+          flush=True)
+    kernels.reset_launch_counts()
+    step_s, costs = [], []
+    for _ in range(PLANT_MAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, aux = rt.make_epoch(drv, 1, sample)(params, state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        costs.append(aux["cost"][0].item())
+    counts = kernels.launch_counts()
+    expected = lm_expected(LM_LAYERS, "central", PLANT_MAIN_STEPS)
+    if counts != expected:
+        fail(f"imperfect device: launches {counts} != expected {expected} "
+             f"(the plant must add no launch)")
+    by_route = check_routes(kernels, counts, "tc", "imperfect device")
+    if not all(math.isfinite(c) for c in costs):
+        fail("imperfect device: a cost went non-finite")
+    # the two parts of a write, alone, at the current step
+    n = state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = plant.inner.write_params(params, step=n)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    moved = sum(int((a != b).sum()) for a, b in
+                zip(tree_leaves(written), tree_leaves(params)))
+    numel = sum(x.numel() for x in tree_leaves(params))
+    t0 = time.perf_counter()
+    drifted = plant.drift(written, n)
+    torch.cuda.synchronize()
+    drift_s = time.perf_counter() - t0
+    del written, drifted
+    draws = draw_checks(torch, rt_rng, plant.inner, params, n, dev)
+    rec = dict(layers=LM_LAYERS, sigma_c=LM_SIGMA_C,
+               sigma_theta=LM_SIGMA_THETA, drift_rate=LM_DRIFT, **gate,
+               main_path_steps=PLANT_MAIN_STEPS, s_per_step=step_s,
+               costs=costs, noisy_write_s=write_s, drift_s=drift_s,
+               elements=numel, landed_moved_share=moved / numel, **draws,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, launches_by_kernel=by_route, card=card)
+    print(json.dumps({"imperfect_device": rec}), flush=True)
+    del params, state, aux, drv
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def resume_full_width(torch, rt, card, dev, steps=3, at=2):
+    """Phase 8: phase 7's model and device, kernel route: an
+    uninterrupted ``steps``-step run against an ``at``-step run that
+    checkpoints, then a fresh driver resuming it to ``steps``.  Params
+    and state must be bitwise equal.  The checkpoint lives in a temporary
+    directory, removed afterwards."""
+    import tempfile
+    from repro_torch.core.utils import tree_leaves
+
+    cfg = rt.get_config("qwen3-14b").replace(n_layers=LM_LAYERS)
+    sample = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)
+    p0 = rt.model_init(cfg, 0, device=dev)
+
+    def run(n, **loop):
+        return rt.train_mgd(
+            None, p0, rt.DriverConfig(dtheta=1e-2, eta=1e-2, seed=0,
+                                      fused=True, mode="central"),
+            sample, n, loop=rt.TrainLoopConfig(
+                chunk=1, log=None, plant=lm_plant(rt, cfg),
+                probe_fn=rt.make_transformer_probe_fn(cfg), **loop),
+            device=dev)
+
+    t0 = time.perf_counter()
+    cont = run(steps)
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(p0))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        free = shutil.disk_usage(d).free
+        if free < 1.2 * param_bytes:
+            fail(f"resume: {free / 1e9:.2f} GB free under {d}, the "
+                 f"checkpoint needs {param_bytes / 1e9:.2f} GB")
+        first = run(at, checkpoint_dir=d, checkpoint_every=at)
+        save_s = first.checkpoint_s["save"]
+        del first
+        torch.cuda.empty_cache()
+        res = run(steps, checkpoint_dir=d)
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in pathlib.Path(d).rglob("*") if f.is_file())
+    if res.steps_done != steps or res.state.step != steps:
+        fail(f"resume: resumed run ended at {res.state.step}")
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(cont.params), tree_leaves(res.params)))
+    same_state = all(
+        torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        for a, b in zip(tree_leaves(cont.state), tree_leaves(res.state)))
+    if not (same and same_state):
+        fail(f"resume: the resumed run is not bitwise the uninterrupted one "
+             f"(params {same}, state {same_state})")
+    rec = dict(layers=LM_LAYERS, steps=steps, checkpoint_at=at,
+               uninterrupted_s=cont_s, save_s=save_s,
+               restore_s=res.checkpoint_s["restore"],
+               checkpoint_bytes=ckpt_bytes,
+               param_bytes=param_bytes, disk_free_gb=free / 1e9,
+               bitwise_params=same, bitwise_state=same_state, card=card)
+    print(json.dumps({"resume": rec}), flush=True)
+    del cont, res, p0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def same_state_steps(torch, drv, ref, params, state, sample, steps,
+                     ct_tol, p_tol):
+    """``steps`` steps of ``drv``, each repeated by ``ref`` from the same
+    params, state and batch: returns the largest C̃ and parameter gaps,
+    the number of steps where anything differed, and the final params."""
+    from repro_torch.core.utils import tree_leaves
+
+    ct_gap = p_gap = 0.0
+    differ = 0
+    for _ in range(steps):
+        batch = sample(state.step)
+        p_ref, _, a_ref = ref.step(params, state, batch)
+        params, state, aux = drv.step(params, state, batch)
+        ct = (aux["c_tilde"] - a_ref["c_tilde"]).abs().item()
+        gaps = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(tree_leaves(params), tree_leaves(p_ref))]
+        differ += int(ct > 0 or max(gaps) > 0)
+        ct_gap, p_gap = max(ct_gap, ct), max(p_gap, *gaps)
+        if not bool(torch.isfinite(aux["cost"])):
+            fail("paper model: a cost went non-finite")
+    if not (ct_gap <= ct_tol and p_gap <= p_tol):
+        fail(f"paper model: kernel route against plain from the same state: "
+             f"C̃ gap {ct_gap} (limit {ct_tol}), params {p_gap} "
+             f"(limit {p_tol})")
+    return dict(c_tilde_max_gap=ct_gap, param_max_gap=p_gap,
+                c_tilde_limit=ct_tol, param_limit=p_tol,
+                steps_differing=differ), params
+
+
+def paper_model(torch, rt, kernels, tasks, pipeline, card, dev):
+    """Phase 9: NIST7x7 49-4-4 through the paper's imperfect devices,
+    fused central τ_θ = 1, kernel route against the plain route; then
+    Algorithm 2 on the card against the CPU."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.hardware import (DriftingPlant, noisy_mlp_plant,
+                                      quantized_mlp_plant)
+
+    base = dict(dtheta=1e-2, eta=0.1, seed=1, fused=True, mode="central")
+    sample = pipeline.generator_sampler(tasks.nist7x7_batch, 1, seed=7,
+                                        device=dev)
+    p0 = rt.mlp_init(2, MLP_SIZES, device=dev)
+
+    def noisy():      # benchmarks/hardware_plants.py:133-135's devices
+        return noisy_mlp_plant(MLP_SIZES, sigma_c=1e-4, sigma_theta=0.01,
+                               sigma_a=0.15, dtheta=1e-2, device=dev)
+
+    def quantized():
+        return quantized_mlp_plant(MLP_SIZES, bits=8, adc_bits=8,
+                                   adc_mode="stochastic", device=dev)
+
+    def drv_for(plant, impl):
+        return rt.driver("discrete", rt.DriverConfig(kernel_impl=impl,
+                                                     **base),
+                         None, plant=plant, device=dev)
+
+    q = quantized()
+    # the f32 C̃ gate of phase 3, and what one update makes of it
+    ct_f32 = CT_ATOL
+    p_f32 = base["eta"] * CT_ATOL / base["dtheta"]
+    runs = {"noisy": (noisy, ct_f32, p_f32),
+            # a one-ulp cost gap can flip one ADC code (C̃ moves by half
+            # an ADC LSB) or one DAC rounding (a param moves one LSB)
+            "quantized_adc8": (quantized, q.adc_lsb * 1.0001,
+                               q.lsb * 1.0001)}
+    out, totals = {}, {name: 0 for name in SOURCES}
+    for name, (make, ct_tol, p_tol) in runs.items():
+        drv, ref = drv_for(make(), None), drv_for(make(), "ref")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec, params = same_state_steps(torch, drv, ref, p0, drv.init(p0),
+                                       sample, MLP_STEPS, ct_tol, p_tol)
+        torch.cuda.synchronize()
+        rec["s"] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        expected = dict(perturbed_matmul=0,
+                        perturbed_matmul_pair=2 * MLP_STEPS,
+                        mgd_update_window=MLP_STEPS, mgd_update=0)
+        if counts != expected:
+            fail(f"paper model {name}: launches {counts} != {expected}")
+        check_routes(kernels, counts, "simt", f"paper model {name}")
+        for k, v in counts.items():
+            totals[k] += v
+        out[name] = dict(steps=MLP_STEPS, **rec, launches=counts, card=card)
+        print(json.dumps({"paper_model": name, **out[name]}), flush=True)
+
+    # a drifting device re-trimmed every MLP_RECAL steps, both routes
+    def drift_run(impl):
+        plant = DriftingPlant(noisy(), mode="walk", drift_rate=1e-3, seed=3)
+        return rt.train_mgd(None, p0, rt.DriverConfig(kernel_impl=impl,
+                                                      **base),
+                            sample, MLP_STEPS, loop=rt.TrainLoopConfig(
+                                chunk=1, log=None, plant=plant,
+                                recal_every=MLP_RECAL), device=dev)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = drift_run(None)
+    torch.cuda.synchronize()
+    drift_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = dict(perturbed_matmul=0, perturbed_matmul_pair=2 * MLP_STEPS,
+                    mgd_update_window=MLP_STEPS, mgd_update=0)
+    if counts != expected:
+        fail(f"paper model drift+recal: launches {counts} != {expected}")
+    for k, v in counts.items():
+        totals[k] += v
+    plain = drift_run("ref")
+    ct_gap = max(abs(a["c_tilde"] - b["c_tilde"])
+                 for (_, a), (_, b) in zip(res.history, plain.history))
+    p_gap = max((a - b).abs().max().item() for a, b in
+                zip(tree_leaves(res.params), tree_leaves(plain.params)))
+    if not (ct_gap <= ct_f32 and p_gap <= p_f32):
+        fail(f"paper model drift+recal: kernel against plain route: C̃ gap "
+             f"{ct_gap} > {ct_f32} or params {p_gap} > {p_f32}")
+    out["drifting_recal8"] = dict(
+        steps=MLP_STEPS, recal_every=MLP_RECAL, s=drift_s,
+        c_tilde_max_gap=ct_gap, param_max_gap=p_gap, launches=counts,
+        card=card)
+    print(json.dumps({"paper_model": "drifting_recal8",
+                      **out["drifting_recal8"]}), flush=True)
+
+    # Algorithm 2, 200 ticks, card against CPU (same batches, made on CPU)
+    cpu_sample = pipeline.generator_sampler(tasks.nist7x7_batch, 1, seed=7,
+                                            device="cpu")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        drv = rt.driver("analog", rt.DriverConfig(cost_noise=1e-4),
+                        lambda p, b: rt.mse(rt.mlp_apply(p, b["x"]),
+                                            b["y"]), device=where)
+        p = [{k: v.to(where) for k, v in layer.items()} for layer in p0]
+        t0 = time.perf_counter()
+        p, s, aux = rt.make_epoch(drv, ANALOG_TICKS, lambda i: {
+            k: v.to(where) for k, v in cpu_sample(i).items()})(p, drv.init(p))
+        runs.append((p, aux, time.perf_counter() - t0))
+    (pc, ac, tc), (ph, ah, th) = runs
+    gaps = {k: (ac[k].cpu() - ah[k]).abs().max().item()
+            for k in ("cost", "c_tilde")}
+    gaps["params"] = max((a.cpu() - b).abs().max().item()
+                         for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
+    if not (all(v <= ANALOG_ATOL for v in gaps.values())
+            and bool(torch.isfinite(ac["cost"]).all())):
+        fail(f"analog: card against CPU over {ANALOG_TICKS} ticks: {gaps} "
+             f"(limit {ANALOG_ATOL})")
+    out["analog"] = dict(ticks=ANALOG_TICKS, max_gap=gaps,
+                         limit=ANALOG_ATOL, card_s=tc, cpu_s=th,
+                         last_cost=ac["cost"][-1].item(), card=card)
+    print(json.dumps({"paper_model": "analog", **out["analog"]}), flush=True)
+    return out, totals
+
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -1067,25 +1461,59 @@ def main(argv=None) -> int:
         torch, _build, mgd_update,
         args.out.with_suffix(".mgd_update.sass") if args.out else None)
 
+    phase_s = {1: time.perf_counter() - t_start}
+    print(f"phase 1 done in {phase_s[1]:.1f} s", flush=True)
+
+    def done(n, t0):
+        phase_s[n] = time.perf_counter() - t0
+        print(f"phase {n} done in {phase_s[n]:.1f} s", flush=True)
+
     # -- phase 2: kernels against plain, on the card ------------------------
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     recs = compare_kernels(torch, ops, pert, dev, int_ops)
+    done(2, t0)
 
     # -- phase 3: MLP training on the card ----------------------------------
+    t0 = time.perf_counter()
     results, totals = train(torch, rt, kernels, tasks, pipeline, card,
                             args.steps, dev)
+    done(3, t0)
 
     # -- phase 4: where the MLP path's step time goes -----------------------
+    t0 = time.perf_counter()
     profiles = profile_main_path(torch, rt, tasks, pipeline, card, dev)
     device_us = kernel_device_us(profiles)
+    done(4, t0)
 
     # -- phase 5: the transformer slice at full width, 4 layers -------------
+    t0 = time.perf_counter()
     lm_results, lm_totals = transformer_slice(torch, rt, kernels, card, dev)
+    done(5, t0)
 
     # -- phase 6: full depth, 40 layers -------------------------------------
+    t0 = time.perf_counter()
     deep, deep_counts = full_depth(torch, rt, kernels, card, dev)
+    done(6, t0)
 
-    for counts in (lm_totals, deep_counts):
+    # -- phase 7: an imperfect device at full width, 4 layers ---------------
+    t0 = time.perf_counter()
+    imperfect, imperfect_counts = imperfect_device(torch, rt, kernels, card,
+                                                   dev)
+    done(7, t0)
+
+    # -- phase 8: checkpoint and resume at full width -----------------------
+    t0 = time.perf_counter()
+    resume = resume_full_width(torch, rt, card, dev)
+    done(8, t0)
+
+    # -- phase 9: the paper's model through its imperfect devices -----------
+    t0 = time.perf_counter()
+    paper, paper_counts = paper_model(torch, rt, kernels, tasks, pipeline,
+                                      card, dev)
+    done(9, t0)
+
+    for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -1094,7 +1522,7 @@ def main(argv=None) -> int:
                   "mgd_update": ([5120, 17408], "bfloat16", 4)}
     by_kernel = {name: {"tc": 0, "simt": 0}
                  for name in kernels.MATMUL_WRAPPERS}
-    for rec in [*results.values(), *lm_results.values(), deep]:
+    for rec in [*results.values(), *lm_results.values(), deep, imperfect]:
         for name, routes in rec.get("launches_by_kernel", {}).items():
             for r, v in routes.items():
                 by_kernel[name][r] += v
@@ -1132,7 +1560,8 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, total_s=total_s, kernels=entries,
             shapes=recs, train=results, profile=profiles,
             transformer=lm_results, full_depth=deep,
-            ptxas=ptxas_summary(reports)), indent=1))
+            imperfect_device=imperfect, resume=resume, paper_model=paper,
+            phase_s=phase_s, ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

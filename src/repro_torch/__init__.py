@@ -22,6 +22,12 @@ The dense GQA transformer (Qwen3-14B at full width) trains the same way::
                     probe_fn=rt.make_transformer_probe_fn(cfg))
     sample = rt.lm_sampler(8, 64, cfg.vocab, seed=0)
 
+Imperfect devices (``hardware``: noisy, quantized and drifting plants
+with the reference's counter-keyed threefry noise), Algorithm 2
+(``driver("analog", ...)``) and checkpoint/resume with scheduled
+recalibration (``TrainLoopConfig(checkpoint_dir=..., recal_every=...)``)
+compose with both.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  The fused path's kernels (perturbed matmul, its
 antithetic pair, the window update) and the ``kernels.ops.mgd_update``
@@ -31,7 +37,8 @@ run instead.
 """
 from .api import (ALGORITHMS, DriverConfig, MGDDriver, driver, make_epoch,
                   state_step)
-from .core import MGDConfig, MGDState, build_mgd_step, mgd_init, mse
+from .core import (AnalogMGDConfig, AnalogMGDState, MGDConfig, MGDState,
+                   build_mgd_step, mgd_init, mse)
 from .configs import get_config, get_smoke_config
 from .data import lm_sampler
 from .models import (ArchConfig, make_mlp_probe_fn, make_transformer_probe_fn,
@@ -44,6 +51,7 @@ __all__ = [
     "ALGORITHMS", "DriverConfig", "MGDDriver", "driver", "make_epoch",
     "state_step",
     "MGDConfig", "MGDState", "build_mgd_step", "mgd_init", "mse",
+    "AnalogMGDConfig", "AnalogMGDState",
     "mlp_init", "mlp_apply", "mlp_apply_perturbed", "make_mlp_probe_fn",
     "ArchConfig", "get_config", "get_smoke_config", "model_init",
     "model_forward", "model_loss", "model_forward_perturbed",

@@ -10,8 +10,8 @@ the standardized ``aux`` keys ``cost``, ``c_tilde`` and
 ``grad_norm_proxy`` (|C̃|/Δθ), plus ``updated`` for the discrete driver.
 
 The registry holds ``"discrete"`` (Algorithm 1, incl. the fused CUDA
-path).  The other algorithms of the JAX package's registry raise with
-the ROADMAP item that ports them.
+path) and ``"analog"`` (Algorithm 2).  The probe-parallel algorithms of
+the JAX package's registry raise with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -25,9 +25,8 @@ from repro_torch.device import resolve_device
 
 Pytree = Any
 
-ALGORITHMS = ("discrete",)
+ALGORITHMS = ("discrete", "analog")
 _NOT_PORTED = {
-    "analog": "A9 (Algorithm 2)",
     "probe_parallel": "A11 (probe parallelism)",
     "probe_parallel_external": "A11/A12 (probe parallelism over external "
                                "chips)",
@@ -39,8 +38,11 @@ class DriverConfig:
     """Algorithm-agnostic MGD configuration (the JAX package's
     ``repro.api.DriverConfig``, field for field).
 
-    Shared fields default to ``None`` and resolve to the discrete
-    algorithm's defaults (Δθ = 1e-3, η = 1e-2, rademacher).
+    Shared fields default to ``None`` and resolve to the algorithm's
+    defaults at ``driver()`` time: Δθ = 1e-3, η = 1e-2, rademacher for
+    the discrete driver; Δθ = 1e-2, η = 1e-3, sinusoidal, τ_θ = 10 for
+    the analog one.  A config whose other-section knobs were moved from
+    their defaults is rejected.
     """
 
     # -- shared (None → per-algorithm default) ------------------------------
@@ -95,10 +97,15 @@ def _reject_foreign(cfg: DriverConfig, algorithm: str) -> None:
 
 def as_mgd_config(cfg):
     """Resolve ``cfg`` to the discrete driver's ``MGDConfig``."""
+    from repro_torch.core.analog import AnalogMGDConfig
     from repro_torch.core.mgd import MGDConfig
 
     if isinstance(cfg, MGDConfig):
         return cfg
+    if isinstance(cfg, AnalogMGDConfig):
+        raise TypeError("AnalogMGDConfig describes Algorithm 2 — use "
+                        "repro_torch.driver('analog', cfg, ...) or a "
+                        "DriverConfig")
     if not isinstance(cfg, DriverConfig):
         raise TypeError(f"expected DriverConfig or MGDConfig, got "
                         f"{type(cfg).__name__}")
@@ -107,7 +114,7 @@ def as_mgd_config(cfg):
         raise ValueError(
             f"the discrete driver integrates over an integer number of "
             f"steps; tau_theta={tau_theta} is fractional — fractional "
-            f"time constants belong to the analog driver")
+            f"time constants belong to repro_torch.driver('analog', ...)")
     return MGDConfig(
         ptype="rademacher" if cfg.ptype is None else cfg.ptype,
         dtheta=1e-3 if cfg.dtheta is None else cfg.dtheta,
@@ -118,6 +125,29 @@ def as_mgd_config(cfg):
         cost_noise=cfg.cost_noise, update_noise=cfg.update_noise,
         staleness=cfg.staleness, fused=cfg.fused,
         kernel_impl=cfg.kernel_impl)
+
+
+def as_analog_config(cfg):
+    """Resolve ``cfg`` to the continuous driver's ``AnalogMGDConfig``."""
+    from repro_torch.core.analog import AnalogMGDConfig
+    from repro_torch.core.mgd import MGDConfig
+
+    if isinstance(cfg, AnalogMGDConfig):
+        return cfg
+    if isinstance(cfg, MGDConfig):
+        raise TypeError("MGDConfig describes the discrete Algorithm 1 — "
+                        "use repro_torch.driver('discrete', cfg, ...) or a "
+                        "DriverConfig")
+    if not isinstance(cfg, DriverConfig):
+        raise TypeError(f"expected DriverConfig or AnalogMGDConfig, got "
+                        f"{type(cfg).__name__}")
+    return AnalogMGDConfig(
+        ptype="sinusoidal" if cfg.ptype is None else cfg.ptype,
+        dtheta=1e-2 if cfg.dtheta is None else cfg.dtheta,
+        eta=1e-3 if cfg.eta is None else cfg.eta,
+        tau_theta=10.0 if cfg.tau_theta is None else float(cfg.tau_theta),
+        tau_hp=cfg.tau_hp, tau_p=cfg.tau_p, dt=cfg.dt, seed=cfg.seed,
+        cost_noise=cfg.cost_noise)
 
 
 class MGDDriver(NamedTuple):
@@ -139,7 +169,18 @@ def state_step(state) -> int:
     """The global iteration counter of a driver state (a host int)."""
     if hasattr(state, "step"):
         return state.step
-    raise TypeError(f"{type(state).__name__} has no step counter")
+    if hasattr(state, "t"):
+        return state.t
+    raise TypeError(f"{type(state).__name__} has no step/t counter")
+
+
+def replace_step(state, step):
+    """``state`` with its iteration counter set to ``step``."""
+    if hasattr(state, "step"):
+        return state._replace(step=int(step))
+    if hasattr(state, "t"):
+        return state._replace(t=int(step))
+    raise TypeError(f"{type(state).__name__} has no step/t counter")
 
 
 _REGISTRY: Dict[str, Callable[..., MGDDriver]] = {}
@@ -218,6 +259,38 @@ def _build_discrete(cfg, loss_fn, *, plant=None, probe_fn=None, mesh=None,
 
     return MGDDriver(init=init, step=step, algorithm="discrete", config=mcfg,
                      tau_x=mcfg.tau_x, plant=plant, device=device)
+
+
+@register_driver("analog")
+def _build_analog(cfg, loss_fn, *, plant=None, probe_fn=None, mesh=None,
+                  total_params=None, device=None) -> MGDDriver:
+    from repro_torch.core.analog import analog_init, build_analog_step
+
+    if mesh is not None:
+        raise ValueError("the analog driver is single-program; mesh only "
+                         "parameterizes probe parallelism")
+    if probe_fn is not None:
+        raise ValueError("the analog driver has no fused probe path — "
+                         "probe_fn belongs to repro_torch.driver("
+                         "'discrete', DriverConfig(fused=True), ...)")
+    if isinstance(cfg, DriverConfig) and cfg.probes != 1:
+        raise ValueError(f"probes={cfg.probes} is a discrete-section knob; "
+                         "Algorithm 2 multiplexes probes in frequency, not "
+                         "by count — use repro_torch.driver('discrete', "
+                         "...) for probe averaging")
+    acfg = as_analog_config(cfg)
+    raw = build_analog_step(loss_fn, acfg, total_params, plant=plant)
+
+    def init(params):
+        check_on_device(params, device)
+        return analog_init(params, acfg)
+
+    def step(params, state, batch):
+        params, state, m = raw(params, state, batch)
+        return params, state, _standard_aux(m, m["c_tilde"], acfg.dtheta)
+
+    return MGDDriver(init=init, step=step, algorithm="analog", config=acfg,
+                     tau_x=1, plant=plant, device=device)
 
 
 def make_epoch(drv: MGDDriver, steps_per_call: int,

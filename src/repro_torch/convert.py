@@ -7,6 +7,11 @@ dtypes are copied exactly, so both packages then compute on identical
 parameters.  bfloat16 travels as its 16-bit pattern: numpy has no
 bfloat16 of its own (the JAX package's arrays carry ``ml_dtypes``'), and
 ``torch.from_numpy`` refuses that dtype.
+
+``state_to_torch`` carries an optimizer state the same way: the JAX
+package's ``MGDState`` or ``AnalogMGDState`` (any NamedTuple with those
+fields, arrays or ``None``) becomes the port's, with the counters
+(``step``, ``t``) and the ``primed`` flag as host values.
 """
 from __future__ import annotations
 
@@ -43,3 +48,25 @@ def to_numpy(tree):
     """numpy arrays on the host; bfloat16 comes back as ``ml_dtypes``'
     bfloat16, the dtype of the JAX package's arrays."""
     return tree_map(_leaf_to_numpy, tree)
+
+
+_HOST_INTS = ("step", "t")
+
+
+def state_to_torch(state, device=None):
+    """The port's ``MGDState``/``AnalogMGDState`` for a reference state."""
+    from repro_torch.core.analog import AnalogMGDState
+    from repro_torch.core.mgd import MGDState
+
+    fields = state._asdict()
+    cls = MGDState if "step" in fields else AnalogMGDState
+    out = {}
+    for name, value in fields.items():
+        if name in _HOST_INTS:
+            out[name] = int(np.asarray(value))
+        elif name == "primed":
+            out[name] = bool(np.asarray(value))
+        else:
+            out[name] = to_torch(value, device)
+    return cls(**out)
+

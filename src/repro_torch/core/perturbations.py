@@ -219,3 +219,19 @@ class Probe(NamedTuple):
             shape, dtype, leaf_id, step=self.step, seed=self.seed,
             dtheta=self.ctx.dtheta, tau_p=self.ctx.tau_p, offset=offset,
             device=device)
+
+
+def orthogonality_check(ptype, n_params, n_steps, *, seed=0, dtheta=1.0,
+                        tau_p=1, device=None):
+    """Empirical Gram matrix of the perturbation sequences (test helper):
+    the (n_params, n_params) time-average of θ̃ᵢθ̃ⱼ.  Pairwise
+    orthogonality is Gram ≈ Δθ²·I (sinusoids: Δθ²/2·I).  Runs on the
+    card unless ``device="cpu"``."""
+    from repro_torch.device import resolve_device
+
+    dummy = {"w": torch.zeros((n_params,), dtype=torch.float32,
+                              device=resolve_device(device))}
+    seq = torch.stack([
+        generate(dummy, ptype=ptype, step=t, seed=seed, dtheta=dtheta,
+                 tau_p=tau_p)["w"] for t in range(n_steps)])   # [T, P]
+    return (seq.T @ seq) / f32(float(n_steps))

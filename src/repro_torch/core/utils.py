@@ -133,6 +133,19 @@ def tree_axpy(a, x, y):
                     x, y)
 
 
+def tree_dot(a, b) -> torch.Tensor:
+    """Sum of elementwise products over the whole pytree, in f32, leaf
+    sums added in flatten order."""
+    total = f32(0.0)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        total = total.to(x.device) + torch.sum(x.float() * y.float())
+    return total
+
+
+def tree_norm(a) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
+
+
 def tree_zeros_like(tree, dtype=None):
     return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
                                           device=x.device), tree)

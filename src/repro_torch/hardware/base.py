@@ -14,9 +14,9 @@ scalar cost.  ``Plant`` is that protocol:
   path: costs under θ ± θ̃ with θ̃ generated at the parameter (in the CUDA
   kernels), never materialized.
 
-``PlantMeta`` carries static device metadata.  Only the ideal device is
-ported so far; noisy, quantized, drifting and external plants remain in
-the JAX package.
+``PlantMeta`` carries static device metadata.  The imperfect devices are
+in ``plants.py``; external plants remain in the JAX package (ROADMAP
+A12).
 """
 from __future__ import annotations
 

@@ -1,10 +1,28 @@
 """Training loop: run any MGD driver for a number of steps.
 
 ``train_mgd`` consumes a ``repro_torch.api.MGDDriver`` or a config the
-registry resolves (``DriverConfig``/``MGDConfig``).  It runs ``chunk``
-steps between host reads, evaluates on a cadence and records one history
-entry per chunk.  Checkpoint/resume and scheduled recalibration are not
-ported yet (ROADMAP "rest of A6") and raise.
+registry resolves (``DriverConfig``, ``MGDConfig``, ``AnalogMGDConfig``).
+It runs ``chunk`` steps between host reads, evaluates on a cadence and
+records one history entry per chunk.
+
+Checkpoints carry the driver's FULL state next to the params (whatever
+the algorithm keeps: replay window, accumulator, momentum, filter
+memories), in the reference's on-disk layout (``training.checkpoint``).
+Perturbations and device noise are counter-keyed on the global step, so
+a resumed run is the uninterrupted run, bit for bit.
+
+``recal_every`` turns on scheduled recalibration, the lab-bench
+mitigation for drifting devices: every ``recal_every`` completed steps
+the loop rewrites the device from the shadow parameters
+(``recal_params``, by default the initial params) through the plant's
+write path.  Boundaries are a pure function of the global step, so a
+resumed run replays the same schedule, with one exception it shares with
+the reference: recalibration runs only while steps remain, so a run that
+ends on a boundary checkpoints parameters that were never recalibrated,
+and a run resumed from that checkpoint skips that rewrite.
+
+``TrainResult.checkpoint_s`` holds the seconds of each checkpoint save
+and of the restore, device work fenced on both sides.
 """
 from __future__ import annotations
 
@@ -12,8 +30,13 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional
 
+import torch
+
 from repro_torch.api.driver import MGDDriver, driver as build_driver, \
-    state_step
+    replace_step, state_step
+from repro_torch.core.mgd import MGDState
+from repro_torch.core.utils import f32
+from . import checkpoint as ckpt
 
 
 @dataclasses.dataclass
@@ -22,6 +45,9 @@ class TrainResult:
     state: Any
     history: list          # list of (step, metric dict)
     steps_done: int
+    # {"save": [s, ...], "restore": s}: seconds of each checkpoint write
+    # and of the resume's read
+    checkpoint_s: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -57,15 +83,80 @@ def resolve_driver(loss_fn, cfg, *, probe_fn=None, plant=None, mesh=None,
                 "got a pre-built MGDDriver AND loss_fn/probe_fn/plant/mesh/"
                 "device — those belong to repro_torch.driver(...)")
         return cfg
-    return build_driver(algorithm or "discrete", cfg, loss_fn,
+    if algorithm is None:
+        from repro_torch.core.analog import AnalogMGDConfig
+        algorithm = "analog" if isinstance(cfg, AnalogMGDConfig) \
+            else "discrete"
+    return build_driver(algorithm, cfg, loss_fn,
                         probe_fn=probe_fn, plant=plant, mesh=mesh,
                         device=device)
+
+
+def _ckpt_tree(params, state):
+    """Checkpoint payload: params + the driver's full state (``None``
+    fields vanish from the flattened tree)."""
+    return {"params": params, "state": state}
+
+
+def _sync(device) -> None:
+    """Wait for the card's queued work, so a host timing covers it."""
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _recalibrate(drv, params, shadow, step):
+    """Commit the shadow parameters to the device through the plant's
+    write path (DAC grid, write noise and one drift transition all
+    apply); with the implicit device the rewrite is the shadow itself."""
+    if drv.plant is None:
+        return shadow
+    return drv.plant.write_params(shadow, step=step, prev=params)
+
+
+def _restore_any(checkpoint_dir, params, state, log):
+    """Restore the newest checkpoint into (params, state), falling back
+    through the reference's layouts: full state → buffers-only
+    ``{"params", "opt": {g, replay_c, m}}`` (discrete) → params only
+    (buffers reset)."""
+    try:
+        tree, _, start = ckpt.restore(checkpoint_dir,
+                                      _ckpt_tree(params, state))
+        return tree["params"], tree["state"], start
+    except ckpt.CheckpointMismatch:
+        pass
+    dev = state.c0.device if isinstance(state, MGDState) else None
+
+    def scalars(st, extra):
+        return st._replace(
+            c0=f32(extra.get("c0", 0.0)).to(dev),
+            metric_cost=f32(extra.get("metric_cost", 0.0)).to(dev))
+
+    if isinstance(state, MGDState):
+        try:
+            tree, extra, start = ckpt.restore(
+                checkpoint_dir,
+                {"params": params, "opt": {"g": state.g,
+                                           "replay_c": state.replay_c,
+                                           "m": state.m}})
+            state = scalars(state._replace(
+                g=tree["opt"]["g"], replay_c=tree["opt"]["replay_c"],
+                m=tree["opt"]["m"], step=start), extra)
+            return tree["params"], state, start
+        except ckpt.CheckpointMismatch:
+            pass
+    params, extra, start = ckpt.restore(checkpoint_dir, params)
+    if log:
+        log("[mgd] legacy checkpoint: optimizer buffers reset")
+    state = replace_step(state, start)
+    if isinstance(state, MGDState):
+        state = scalars(state, extra)
+    return params, state, start
 
 
 def train_mgd(
     loss_fn: Optional[Callable],
     params,
-    cfg,                          # MGDDriver | DriverConfig | MGDConfig
+    cfg,                # MGDDriver | DriverConfig | (Analog)MGDConfig
     sample_fn: Callable,          # sample_fn(sample_index) -> batch
     num_steps: int,
     *,
@@ -75,24 +166,44 @@ def train_mgd(
     """Run an MGD driver for ``num_steps`` iterations.
 
     ``device`` is where the run lives (the CUDA card unless
-    ``device="cpu"``); a pre-built driver carries its own.
+    ``device="cpu"``); a pre-built driver carries its own.  With
+    ``loop.checkpoint_dir`` the run resumes from the newest checkpoint
+    there (unless ``loop.resume`` is False) and saves every
+    ``loop.checkpoint_every`` steps.
     """
     loop = loop or TrainLoopConfig()
-    if loop.checkpoint_dir or loop.checkpoint_every:
-        raise NotImplementedError("checkpoint/resume is not ported to "
-                                  "repro_torch yet (ROADMAP rest of A6)")
-    if loop.recal_every or loop.recal_params is not None:
-        raise NotImplementedError("scheduled recalibration is not ported "
-                                  "to repro_torch yet (ROADMAP rest of A6)")
+    if loop.recal_every < 0:
+        raise ValueError(
+            f"recal_every must be >= 0, got {loop.recal_every}")
+    # shadow taken from the caller's arguments BEFORE any resume: the
+    # factory calibration, identical across restarts
+    shadow = loop.recal_params if loop.recal_params is not None else params
     drv = resolve_driver(loss_fn, cfg, probe_fn=loop.probe_fn,
                          plant=loop.plant, mesh=loop.mesh,
                          algorithm=loop.algorithm, device=device)
     state = drv.init(params)
-    history = []
     done = 0
+    ckdir = loop.checkpoint_dir
+    ckpt_s = {}
+    if ckdir and loop.resume and ckpt.latest_step(ckdir) is not None:
+        _sync(drv.device)
+        t_io = time.perf_counter()
+        params, state, done = _restore_any(ckdir, params, state, loop.log)
+        _sync(drv.device)
+        ckpt_s["restore"] = time.perf_counter() - t_io
+        if loop.log:
+            loop.log(f"[mgd] resumed from step {done}")
+    # a plant that keeps writes in flight exposes fence(); boundaries
+    # that read the state (eval, recalibration, checkpoint) wait on it
+    plant_fence = getattr(drv.plant, "fence", None)
+    fence = plant_fence if callable(plant_fence) else (lambda: None)
+    history = []
     t0 = time.time()
     while done < num_steps:
         n = min(loop.chunk, num_steps - done)
+        if loop.recal_every:
+            # stop each chunk at the next recalibration boundary
+            n = min(n, loop.recal_every - done % loop.recal_every)
         metrics = {}
         for _ in range(n):
             batch = sample_fn(state_step(state) // drv.tau_x)
@@ -101,10 +212,28 @@ def train_mgd(
         rec = {k: float(v) for k, v in metrics.items()}
         if loop.eval_fn and loop.eval_every and \
                 (done % loop.eval_every < loop.chunk):
+            fence()
             rec.update({k: float(v) for k, v in loop.eval_fn(params).items()})
         history.append((done, rec))
         if loop.log:
             msg = " ".join(f"{k}={v:.4g}" for k, v in rec.items())
             loop.log(f"[mgd] step {done}/{num_steps} {msg} "
                      f"({(time.time() - t0):.1f}s)")
-    return TrainResult(params, state, history, done)
+        if loop.recal_every and done % loop.recal_every == 0 \
+                and done < num_steps:
+            fence()
+            params = _recalibrate(drv, params, shadow, done)
+            if loop.log:
+                loop.log(f"[mgd] step {done}: scheduled recalibration "
+                         f"(full rewrite from shadow params)")
+        if ckdir and loop.checkpoint_every and \
+                done % loop.checkpoint_every == 0:
+            fence()
+            _sync(drv.device)
+            t_io = time.perf_counter()
+            ckpt.save(ckdir, done, _ckpt_tree(params, state),
+                      extra={"algo": drv.algorithm,
+                             "seed": int(getattr(drv.config, "seed", 0))})
+            ckpt_s.setdefault("save", []).append(time.perf_counter() - t_io)
+    fence()
+    return TrainResult(params, state, history, done, ckpt_s)

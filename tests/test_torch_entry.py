@@ -142,27 +142,26 @@ def test_cuda_impl_on_cpu_params_raises():
 
 
 @pytest.mark.parametrize("algorithm,item", [
-    ("analog", "A9"), ("probe_parallel", "A11"),
-    ("probe_parallel_external", "A11")])
+    ("probe_parallel", "A11"), ("probe_parallel_external", "A11")])
 def test_unported_algorithms_name_their_roadmap_item(algorithm, item):
     with pytest.raises(NotImplementedError, match=item):
         rt.driver(algorithm, rt.DriverConfig(), _loss, device="cpu")
 
 
-def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        rt.driver("discrete", rt.DriverConfig(cost_noise=0.1), _loss,
-                  device="cpu")
+def test_unported_knobs_raise(tmp_path):
+    from repro_torch.training import checkpoint as ckpt
+
     params = rt.mlp_init(0, (2, 2, 1), device="cpu")
-    for loop in (rt.TrainLoopConfig(checkpoint_dir="ckpt"),
-                 rt.TrainLoopConfig(recal_every=5)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            rt.train_mgd(_loss, params, _cfg(fused=False), lambda i: None, 1,
-                         loop=loop, device="cpu")
+    ckpt.save(str(tmp_path), 1, params)
+    with pytest.raises(NotImplementedError, match="A15"):
+        ckpt.restore(str(tmp_path), params, mesh=object())
     with pytest.raises(ValueError, match="unknown algorithm"):
         rt.driver("nope", rt.DriverConfig(), _loss, device="cpu")
     with pytest.raises(ValueError, match="analog-section"):
         rt.driver("discrete", rt.DriverConfig(tau_hp=5.0), _loss,
+                  device="cpu")
+    with pytest.raises(ValueError, match="discrete-section"):
+        rt.driver("analog", rt.DriverConfig(mode="central"), _loss,
                   device="cpu")
 
 

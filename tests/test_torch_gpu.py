@@ -430,3 +430,106 @@ def test_tc_cluster_sizes_agree_bitwise(cuda_device, m, k, n):
         assert torch.equal(pairs[0][0], singles[0])
     with pytest.raises(ValueError, match="cluster"):
         pm.perturbed_matmul(x, w, ls, amp=0.01, cluster=3)
+
+
+# ---------------------------------------------------------------------------
+# Imperfect devices and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 1001, (1 << 24) + 3])
+def test_threefry_card_equals_cpu(cuda_device, n):
+    """Counter-keyed threefry: bits and uniforms bitwise, normals within
+    ``rng.NORMAL_ULPS``, card against CPU (past one 2²⁴-element chunk)."""
+    from repro_torch.core import rng
+    key = rng.fold_in(rng.fold_in(rng.prng_key(77), 3), 12345)
+    lo = max(0, n - 4096)
+    assert torch.equal(rng.bits_slice(key, lo, n, cuda_device).cpu(),
+                       rng.bits_slice(key, lo, n, "cpu"))
+    card = rng.uniform(key, (n,), -2.5, 3.0, device=cuda_device).cpu()
+    assert torch.equal(card[lo:], rng.uniform(key, (n,), -2.5, 3.0,
+                                              device="cpu")[lo:])
+    a = rng.normal_slice(key, lo, n, cuda_device).cpu()
+    b = rng.normal_slice(key, lo, n, "cpu")
+    ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    assert ulps.max().item() <= rng.NORMAL_ULPS
+
+
+@pytest.mark.gpu
+def test_plant_writes_card_equal_cpu(cuda_device):
+    """The DAC of a bf16 tree on the card against the CPU: bitwise.  The
+    noisy write and the drift: within one bf16 ulp, on all but a few
+    elements' bits (a normal may differ in its last ulps between the two
+    devices' ``log1p``, which can flip a rounding)."""
+    from repro_torch.hardware import DriftingPlant, NoisyPlant, QuantizedPlant
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": (torch.randn((300, 70), generator=g) * 0.02
+                  ).to(torch.bfloat16),
+            "b": torch.randn((70,), generator=g).to(torch.bfloat16)}
+    plant = DriftingPlant(NoisyPlant(None, write_noise=0.1, dtheta=1e-2,
+                                     seed=4), mode="walk", drift_rate=1e-3)
+    dac = QuantizedPlant(None, bits=8)
+    on_card = {k: v.to(cuda_device) for k, v in tree.items()}
+    want, got = dac.quantize(tree), dac.quantize(on_card)
+    for k in tree:
+        assert torch.equal(got[k].cpu(), want[k])
+    want, got = plant.write_params(tree, step=5), \
+        plant.write_params(on_card, step=5)
+    for k in tree:
+        a, b = got[k].cpu().float(), want[k].float()
+        assert ((a - b).abs() <= b.abs() * 2.0 ** -7).all()
+        assert (a != b).float().mean().item() < 1e-3
+
+
+@pytest.mark.gpu
+def test_checkpoint_roundtrip_bf16_on_card(cuda_device, tmp_path):
+    from repro_torch.training import checkpoint as ckpt
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tree = {"p": [torch.randn((33, 17), generator=g,
+                              device=cuda_device).to(torch.bfloat16),
+                  torch.randn((5,), generator=g, device=cuda_device)],
+            "n": 4}
+    ckpt.save(str(tmp_path), 4, tree)
+    like = {"p": [torch.zeros_like(x) for x in tree["p"]], "n": 0}
+    out, _, step = ckpt.restore(str(tmp_path), like)
+    assert step == 4 and out["n"] == 4
+    for a, b in zip(tree["p"], out["p"]):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_resume_bit_exact_on_kernel_route(cuda_device, tmp_path):
+    """A small bf16 decoder through a drifting noisy device, fused central
+    on the card's kernels: 4 steps uninterrupted against 2 + checkpoint +
+    a fresh driver resuming to 4, with a recalibration at step 3."""
+    import repro_torch as rt
+    from repro_torch.hardware import DriftingPlant, NoisyPlant
+    from repro_torch.core.utils import tree_leaves
+
+    cfg = rt.get_smoke_config("qwen3-14b").replace(dtype="bfloat16")
+    sample = rt.lm_sampler(2, 16, cfg.vocab, seed=0, device=cuda_device)
+    p0 = rt.model_init(cfg, 0, device=cuda_device)
+
+    def run(steps, **loop):
+        plant = DriftingPlant(NoisyPlant(
+            lambda p, b: rt.model_loss(p, cfg, b), cost_noise=1e-4,
+            write_noise=0.1, dtheta=1e-2, seed=1), mode="walk",
+            drift_rate=1e-3)
+        return rt.train_mgd(None, p0, rt.DriverConfig(
+            dtheta=1e-2, eta=1e-2, mode="central", fused=True), sample,
+            steps, loop=rt.TrainLoopConfig(
+                chunk=1, log=None, plant=plant, recal_every=3,
+                probe_fn=rt.make_transformer_probe_fn(cfg), **loop),
+            device=cuda_device)
+
+    kernels.reset_launch_counts()
+    cont = run(4)
+    assert kernels.launch_counts()["perturbed_matmul_pair"] > 0
+    run(2, checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    res = run(4, checkpoint_dir=str(tmp_path))
+    for a, b in zip(tree_leaves(cont.params), tree_leaves(res.params)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(cont.state), tree_leaves(res.state)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
