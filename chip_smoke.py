@@ -95,8 +95,24 @@ Phases, each fatal on failure (nothing is caught):
    a drifting noisy device with recalibration every 8 steps, kernel
    route against plain route over 32 steps; then 200 ticks of
    ``driver("analog", ...)`` on the card against the CPU (1e-5).
+10. The paper's Table 2 CNNs at full width: the Fashion CNN (20,490
+   params, 28×28×1) and the CIFAR CNN (26,154, 32×32×3), batch 64,
+   Table 2's configs (Δθ = 1e-3, η = 1e-4 / 5e-5, seed 1, sampler seeds
+   3 / 4, forward mode), MGD through ``driver`` and ``make_epoch`` on the
+   unfused path (θ̃ materialized, as in the reference: no kernel
+   launches), then ``train_backprop`` (η = 0.02, 400 steps).  Gates: the
+   first 16 batches drawn on the card equal the CPU's (labels and shifts
+   bitwise, noise within ``rng.NORMAL_ULPS``); the first 16 MGD and
+   backprop steps on the card against the CPU from the same params and
+   sampler indices, C̃, cost and params within ``CNN_LIMITS`` (printed as
+   fractions of them), and a control that must miss: the MGD gate rerun
+   with cuDNN's TF32 under ``conv2d``.  Printed: MGD and backprop
+   steps/s, the sampler's ms a batch, held-out accuracy on 512 samples
+   after 2000 MGD and 400 backprop steps, peak memory.
 
-Every phase prints its seconds.
+Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
+samplers draw the reference's batches with ``core.rng``'s threefry in
+eager torch ops.  Every phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither, when
@@ -618,6 +634,7 @@ def compare_update(torch, rt_ops, pert, gen, dev, k, n, j, dname, ints):
 
 def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
     """Phase 3: the main path, three fused runs on the card."""
+    from repro_torch.core import rng
     base = dict(dtheta=1e-2, eta=0.1, seed=1, fused=True)
     runs = {
         "central_tau1": (dict(mode="central"), dict(
@@ -631,7 +648,7 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
                                  mgd_update_window=steps // 4,
                                  perturbed_matmul=0, mgd_update=0)),
     }
-    xe, ye = tasks.nist7x7_batch(pipeline.sample_generator(99, 0, dev), 512)
+    xe, ye = tasks.nist7x7_batch(rng.prng_key(99), 512, device=dev)
 
     def loss(p, b):
         return rt.mse(rt.mlp_apply(p, b["x"]), b["y"])
@@ -687,6 +704,7 @@ def train(torch, rt, kernels, tasks, pipeline, card, steps, dev):
             totals[k] += v
         results[name] = dict(
             steps=steps, steps_per_s=(steps - CT_CHECK_STEPS) / dt,
+            sampler_ms_per_batch=time_ms(lambda: sample(7)),
             heldout_acc_512=acc, final_cost=aux["cost"][-1].item(),
             c_tilde_max_abs_err_vs_plain=ct_err, launches=counts,
             launches_by_kernel=by_route, card=card)
@@ -1413,6 +1431,220 @@ def paper_model(torch, rt, kernels, tasks, pipeline, card, dev):
 
 
 
+# -- phase 10: the paper's CNNs (Table 2) -----------------------------------
+
+CNN_BATCH = 64
+CNN_GATE_STEPS = 16
+CNN_MGD_STEPS = 2000        # of Table 2's 8000 (Fashion) / 6000 (CIFAR)
+CNN_EPOCH = 250
+CNN_BP_STEPS = 400          # Table 2's backprop budget, η = 0.02
+CNN_BP_ETA = 0.02
+CNN_NOISE = 0.6             # tasks.procedural_image_batch's pixel noise
+# card against CPU over the first CNN_GATE_STEPS steps from the same
+# params and sampler indices (each device draws its own batches)
+CNN_LIMITS = dict(c_tilde=1e-6, cost=1e-6, params=1e-6, bp_cost=1e-6,
+                  bp_params=1e-6)
+# Table 2's configs (benchmarks/table2_datasets.py): model, batch_fn, η,
+# sampler seed, held-out key; Δθ = 1e-3, seed 1, forward mode
+CNN_CONFIGS = {
+    "fashion": ("fashion_cnn", "fashion_batch", 1e-4, 3, 98),
+    "cifar": ("cifar_cnn", "cifar_batch", 5e-5, 4, 97),
+}
+
+
+def ulp(torch, x):
+    x = x.abs()
+    return torch.nextafter(x, torch.full_like(x, math.inf)) - x
+
+
+def cnn_batches_card_vs_cpu(torch, rt_rng, batch_fn, seed, dev):
+    """Indices 0..CNN_GATE_STEPS-1 drawn on the card and on the CPU:
+    labels and shifts bitwise, the noise draws within NORMAL_ULPS, the
+    images within that many ulps of the noise term plus one of the
+    image."""
+    worst_ulps = worst_img = 0.0
+    for i in range(CNN_GATE_STEPS):
+        key = rt_rng.fold_in(rt_rng.prng_key(seed), i)
+        xc, yc = batch_fn(key, CNN_BATCH, device="cpu")
+        xd, yd = batch_fn(key, CNN_BATCH, device=dev)
+        _, k_shift, k_noise = rt_rng.split(key, 3)
+        sh = [rt_rng.randint(k_shift, (CNN_BATCH, 2), -2, 3, device=d).cpu()
+              for d in (dev, "cpu")]
+        if not (torch.equal(yd.cpu(), yc) and torch.equal(*sh)):
+            fail(f"CNN batch {i}: labels or shifts differ card vs CPU")
+        nd = rt_rng.normal(k_noise, tuple(xc.shape), device=dev).cpu()
+        nc = rt_rng.normal(k_noise, tuple(xc.shape), device="cpu")
+        ulps = max_ulps(torch, nd, nc)
+        tol = ((rt_rng.NORMAL_ULPS + 1) * ulp(torch, CNN_NOISE * nc)
+               + ulp(torch, xc))
+        gap = (xd.cpu() - xc).abs()
+        if ulps > rt_rng.NORMAL_ULPS or bool((gap > tol).any()):
+            fail(f"CNN batch {i}: noise {ulps} ulps apart card vs CPU, "
+                 f"images {gap.max().item()} apart")
+        worst_ulps = max(worst_ulps, ulps)
+        worst_img = max(worst_img, gap.max().item())
+    return dict(indices=CNN_GATE_STEPS, labels_shifts_bitwise=True,
+                noise_max_ulps=worst_ulps, image_max_abs_gap=worst_img)
+
+
+def tree_gap(tree_leaves, a, b):
+    return max((x.cpu() - y.cpu()).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def cnn_gate(torch, rt, pipeline, batch_fn, init, loss, eta, seed, dev):
+    """The first CNN_GATE_STEPS MGD and backprop steps on the card and on
+    the CPU from the same params and sampler indices; gaps in limits
+    (``CNN_LIMITS``), and the same MGD gate with cuDNN's TF32 switched on
+    under ``conv2d`` (a control: what TF32 would do to the gate)."""
+    import torch.nn.functional as F
+    from repro_torch.core.utils import tree_leaves, tree_map
+
+    where = {"cuda": dev, "cpu": torch.device("cpu")}
+    sample = {k: pipeline.generator_sampler(batch_fn, CNN_BATCH, seed=seed,
+                                            device=d)
+              for k, d in where.items()}
+
+    def mgd(k):
+        """CNN_GATE_STEPS MGD steps on ``where[k]``: (params, C̃, cost)."""
+        drv = rt.driver("discrete", rt.DriverConfig(dtheta=1e-3, eta=eta,
+                                                    seed=1), loss,
+                        device=where[k])
+        p = tree_map(lambda t: t.to(where[k]), init)
+        p, _, aux = rt.make_epoch(drv, CNN_GATE_STEPS, sample[k])(
+            p, drv.init(p))
+        return p, aux["c_tilde"].cpu(), aux["cost"].cpu()
+
+    def bp(k):
+        return rt.train_backprop(
+            loss, tree_map(lambda t: t.to(where[k]), init), sample[k],
+            CNN_GATE_STEPS, eta=CNN_BP_ETA, chunk=CNN_GATE_STEPS, log=None)
+
+    def gaps_to(cpu, card):
+        return dict(c_tilde=(card[1] - cpu[1]).abs().max().item(),
+                    cost=(card[2] - cpu[2]).abs().max().item(),
+                    params=tree_gap(tree_leaves, card[0], cpu[0]))
+
+    cpu_run = mgd("cpu")
+    gaps = gaps_to(cpu_run, mgd("cuda"))
+    bp_cpu, bp_card = bp("cpu"), bp("cuda")
+    gaps["bp_cost"] = abs(bp_card.history[0][1]["cost"]
+                          - bp_cpu.history[0][1]["cost"])
+    gaps["bp_params"] = tree_gap(tree_leaves, bp_card.params, bp_cpu.params)
+
+    conv = F.conv2d
+
+    def tf32_conv(*a, **kw):
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return conv(*a, **kw)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+    F.conv2d = tf32_conv
+    try:
+        tf32 = gaps_to(cpu_run, mgd("cuda"))
+    finally:
+        F.conv2d = conv
+    return dict(steps=CNN_GATE_STEPS, gaps=gaps, limits=CNN_LIMITS,
+                gaps_in_limits={k: v / CNN_LIMITS[k]
+                                for k, v in gaps.items()},
+                c_tilde_first=cpu_run[1].tolist(), tf32_control_gaps=tf32,
+                tf32_control_in_limits={k: v / CNN_LIMITS[k]
+                                        for k, v in tf32.items()})
+
+
+def paper_cnns(torch, rt, kernels, tasks, pipeline, card, dev):
+    """Phase 10: Table 2's Fashion and CIFAR CNNs at full width on the
+    card, MGD (unfused, θ̃ materialized, as in the reference) and the
+    backprop baseline."""
+    from repro_torch.core import rng as rt_rng
+    from repro_torch.core.utils import tree_size
+
+    out = {}
+    for name, (model, batch_name, eta, seed, heldout) in CNN_CONFIGS.items():
+        init_fn = getattr(rt, model + "_init")
+        apply_fn = getattr(rt, model + "_apply")
+        batch_fn = getattr(tasks, batch_name)
+
+        def loss(p, b, apply_fn=apply_fn):
+            return rt.mse(apply_fn(p, b["x"]), b["y"])
+
+        rec = dict(params=tree_size(init_fn(0, device="cpu")),
+                   batch=CNN_BATCH, eta=eta, dtheta=1e-3, sampler_seed=seed)
+        rec["batches"] = cnn_batches_card_vs_cpu(torch, rt_rng, batch_fn,
+                                                 seed, dev)
+        gate = cnn_gate(torch, rt, pipeline, batch_fn,
+                        init_fn(0, device="cpu"), loss, eta, seed, dev)
+        rec["gate"] = gate
+        print(json.dumps({"paper_cnn_gate": name, **gate}), flush=True)
+        bad = {k: v for k, v in gate["gaps_in_limits"].items() if not v <= 1}
+        if bad:
+            fail(f"paper CNN {name}: card against CPU over the first "
+                 f"{CNN_GATE_STEPS} steps beyond the limits: {bad}")
+        if not gate["tf32_control_in_limits"]["c_tilde"] > 1:
+            fail(f"paper CNN {name}: the C̃ gate passes its TF32 control "
+                 f"({gate['tf32_control_gaps']}), too loose to guard the "
+                 f"conv's precision")
+
+        sample = pipeline.generator_sampler(batch_fn, CNN_BATCH, seed=seed,
+                                            device=dev)
+        xe, ye = batch_fn(rt_rng.prng_key(heldout), 512, device=dev)
+        rec["sampler_ms_per_batch"] = time_ms(lambda: sample(5))
+        drv = rt.driver("discrete", rt.DriverConfig(dtheta=1e-3, eta=eta,
+                                                    seed=1), loss,
+                        device=dev)
+        params = init_fn(0, device=dev)
+        state = drv.init(params)
+        epoch = rt.make_epoch(drv, CNN_EPOCH, sample)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        finite = True
+        for _ in range(CNN_MGD_STEPS // CNN_EPOCH):
+            params, state, aux = epoch(params, state)
+            finite = finite and bool(torch.isfinite(aux["cost"]).all())
+        torch.cuda.synchronize()
+        mgd_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if any(counts.values()):
+            fail(f"paper CNN {name}: the unfused path launched {counts}")
+        if not finite:
+            fail(f"paper CNN {name}: an MGD cost went non-finite")
+        out_mgd = apply_fn(params, xe)
+        if tuple(out_mgd.shape) != (512, 10) or \
+                not bool(torch.isfinite(out_mgd).all()):
+            fail(f"paper CNN {name}: held-out outputs not finite")
+        rec.update(
+            mgd_steps=CNN_MGD_STEPS, mgd_steps_per_s=CNN_MGD_STEPS / mgd_s,
+            mgd_last_cost=aux["cost"][-1].item(),
+            mgd_heldout_acc_512=rt.classification_accuracy(
+                apply_fn, params, xe, ye).item(),
+            mgd_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = rt.train_backprop(loss, init_fn(0, device=dev), sample,
+                                CNN_BP_STEPS, eta=CNN_BP_ETA, chunk=200,
+                                log=None)
+        torch.cuda.synchronize()
+        bp_s = time.perf_counter() - t0
+        if not all(math.isfinite(h["cost"]) for _, h in res.history):
+            fail(f"paper CNN {name}: a backprop cost went non-finite")
+        rec.update(
+            bp_steps=CNN_BP_STEPS, bp_steps_per_s=CNN_BP_STEPS / bp_s,
+            bp_last_cost=res.history[-1][1]["cost"],
+            bp_heldout_acc_512=rt.classification_accuracy(
+                apply_fn, res.params, xe, ye).item(),
+            bp_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=counts, card=card)
+        out[name] = rec
+        print(json.dumps({"paper_cnn": name, **{k: v for k, v in rec.items()
+                                                if k != "gate"}}),
+              flush=True)
+    return out
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -1513,6 +1745,11 @@ def main(argv=None) -> int:
                                       card, dev)
     done(9, t0)
 
+    # -- phase 10: the paper's CNNs, MGD and backprop (Table 2) -------------
+    t0 = time.perf_counter()
+    cnns = paper_cnns(torch, rt, kernels, tasks, pipeline, card, dev)
+    done(10, t0)
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts):
         for k, v in counts.items():
             totals[k] += v
@@ -1561,7 +1798,7 @@ def main(argv=None) -> int:
             shapes=recs, train=results, profile=profiles,
             transformer=lm_results, full_depth=deep,
             imperfect_device=imperfect, resume=resume, paper_model=paper,
-            phase_s=phase_s, ptxas=ptxas_summary(reports)), indent=1))
+            paper_cnns=cnns, phase_s=phase_s, ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,16 @@ The dense GQA transformer (Qwen3-14B at full width) trains the same way::
                     probe_fn=rt.make_transformer_probe_fn(cfg))
     sample = rt.lm_sampler(8, 64, cfg.vocab, seed=0)
 
+The paper's Table 2 CNNs train the same way on the Fashion-MNIST /
+CIFAR-10 stand-ins, beside the backprop baseline::
+
+    params = rt.fashion_cnn_init(0)
+    sample = rt.generator_sampler(rt.tasks.fashion_batch, 64, seed=3)
+    loss = lambda p, b: rt.mse(rt.fashion_cnn_apply(p, b["x"]), b["y"])
+    mgd = rt.driver("discrete", rt.DriverConfig(dtheta=1e-3, eta=1e-4,
+                                                seed=1), loss)
+    res = rt.train_backprop(loss, params, sample, 400, eta=0.02)
+
 Imperfect devices (``hardware``: noisy, quantized and drifting plants
 with the reference's counter-keyed threefry noise), Algorithm 2
 (``driver("analog", ...)``) and checkpoint/resume with scheduled
@@ -36,26 +46,37 @@ built with nvcc on first use; on CPU tensors their plain PyTorch versions
 run instead.
 """
 from .api import (ALGORITHMS, DriverConfig, MGDDriver, driver, make_epoch,
-                  state_step)
+                  register_driver, replace_step, state_step)
 from .core import (AnalogMGDConfig, AnalogMGDState, MGDConfig, MGDState,
                    build_mgd_step, mgd_init, mse)
 from .configs import get_config, get_smoke_config
-from .data import lm_sampler
-from .models import (ArchConfig, make_mlp_probe_fn, make_transformer_probe_fn,
-                     mlp_apply, mlp_apply_perturbed, mlp_init, model_forward,
+from .data import dataset_sampler, generator_sampler, lm_sampler, tasks
+from .models import (ArchConfig, cifar_cnn_apply, cifar_cnn_init, cnn_apply,
+                     cnn_init, fashion_cnn_apply, fashion_cnn_init,
+                     linear_apply, make_mlp_probe_fn,
+                     make_transformer_probe_fn, mlp_apply,
+                     mlp_apply_perturbed, mlp_init, model_forward,
                      model_forward_perturbed, model_init, model_loss,
                      model_probe_costs, supports_fused_probe)
-from .training import TrainLoopConfig, TrainResult, train_mgd
+from .optim import sgd_init, sgd_step
+from .training import (TrainLoopConfig, TrainResult, classification_accuracy,
+                       train_backprop, train_mgd)
+
+train = train_mgd
 
 __all__ = [
     "ALGORITHMS", "DriverConfig", "MGDDriver", "driver", "make_epoch",
-    "state_step",
+    "register_driver", "replace_step", "state_step",
     "MGDConfig", "MGDState", "build_mgd_step", "mgd_init", "mse",
     "AnalogMGDConfig", "AnalogMGDState",
     "mlp_init", "mlp_apply", "mlp_apply_perturbed", "make_mlp_probe_fn",
+    "linear_apply", "cnn_init", "cnn_apply", "fashion_cnn_init",
+    "fashion_cnn_apply", "cifar_cnn_init", "cifar_cnn_apply",
     "ArchConfig", "get_config", "get_smoke_config", "model_init",
     "model_forward", "model_loss", "model_forward_perturbed",
     "model_probe_costs", "make_transformer_probe_fn", "supports_fused_probe",
-    "lm_sampler",
-    "TrainLoopConfig", "TrainResult", "train_mgd",
+    "tasks", "dataset_sampler", "generator_sampler", "lm_sampler",
+    "sgd_init", "sgd_step",
+    "TrainLoopConfig", "TrainResult", "train", "train_mgd", "train_backprop",
+    "classification_accuracy",
 ]

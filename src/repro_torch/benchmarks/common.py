@@ -1,0 +1,66 @@
+"""Shared benchmark helpers: driver-based MGD training with early stopping
+(the twin of the reference's ``benchmarks/common.py``).
+
+Every benchmark builds its algorithm through ``repro_torch.driver``, so
+the same helper drives any registered config against any hardware plant.
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from repro_torch.api import driver as build_driver, make_epoch
+from repro_torch.core import mse
+from repro_torch.core.utils import tree_leaves
+from repro_torch.data import tasks
+from repro_torch.data.pipeline import dataset_sampler
+from repro_torch.models.simple import mlp_apply, mlp_init
+
+
+def train_until(loss_fn, params, cfg, sample_fn, *, max_steps: int,
+                threshold_fn: Callable, chunk: int = 2000, plant=None,
+                algorithm: str = "discrete", device=None):
+    """Run an MGD driver ``chunk`` steps at a time until
+    ``threshold_fn(params)`` or the budget.  Returns (params, steps_used,
+    solved)."""
+    drv = build_driver(algorithm, cfg, loss_fn, plant=plant, device=device)
+    run = make_epoch(drv, chunk, sample_fn)
+    state = drv.init(params)
+    steps = 0
+    while steps < max_steps:
+        params, state, _ = run(params, state)
+        steps += chunk
+        if threshold_fn(params):
+            return params, steps, True
+    return params, steps, False
+
+
+def xor_loss(params, batch):
+    return mse(mlp_apply(params, batch["x"]), batch["y"])
+
+
+def xor_mse(params):
+    x, y = tasks.xor_dataset(device=tree_leaves(params)[0].device)
+    return float(mse(mlp_apply(params, x), y))
+
+
+def xor_setup(seed: int, device=None):
+    x, y = tasks.xor_dataset(device=device)
+    params = mlp_init(seed, (2, 2, 1), device=device)
+    return params, xor_loss, dataset_sampler(x, y, 1)
+
+
+def time_to_solve_xor(cfg, seed: int, max_steps=60000, chunk=2000,
+                      plant=None, device=None):
+    params, loss_fn, sample_fn = xor_setup(seed, device)
+    _, steps, solved = train_until(
+        loss_fn, params, cfg, sample_fn, max_steps=max_steps,
+        threshold_fn=lambda p: xor_mse(p) < 0.04, chunk=chunk, plant=plant,
+        device=device)
+    return steps if solved else None
+
+
+def median(vals):
+    vals = sorted(vals)
+    return vals[len(vals) // 2] if vals else None

@@ -1,8 +1,11 @@
 """Carry parameters between the JAX package and the port.
 
 ``to_torch`` turns a nested list/tuple/dict of arrays (numpy, or anything
-``numpy.asarray`` reads, such as the JAX package's params) into the same
-structure of tensors on a device; ``to_numpy`` goes back.  Values and
+``numpy.asarray`` reads, such as the JAX package's params: the MLP's
+layer list, the CNNs' ``{"convs": [{"b", "w"}, …], "fc": {"b", "w"}}``,
+the transformer's tree) into the same structure of tensors on a device;
+``to_numpy`` goes back.  Dicts come out with their keys sorted, the
+order in which JAX flattens and rebuilds them.  Values and
 dtypes are copied exactly, so both packages then compute on identical
 parameters.  bfloat16 travels as its 16-bit pattern: numpy has no
 bfloat16 of its own (the JAX package's arrays carry ``ml_dtypes``'), and

@@ -1,10 +1,13 @@
 """Counter-keyed threefry2x32: the port's copy of the ``jax.random`` draws
-the imperfect devices make.
+the imperfect devices and the data samplers make.
 
 The JAX package's plants key every draw as ``PRNGKey(seed)`` →
 ``fold_in(tag)`` → ``fold_in(step)`` and draw with ``jax.random.normal``
-or ``uniform``; this module reproduces those draws in torch so a noisy,
-quantized or drifting device lands the same values in both packages.
+or ``uniform``; its samplers draw batch i from ``fold_in(PRNGKey(seed),
+i)`` with ``split``, ``randint``, ``normal``, ``uniform`` and
+``bernoulli``.  This module reproduces those draws in torch so a noisy,
+quantized or drifting device lands the same values, and a sampler the
+same batches, in both packages.
 
 It follows jax 0.9.0 with ``jax_threefry_partitionable = True`` (that
 release's default; ``jax/_src/prng.py``):
@@ -176,6 +179,36 @@ def uniform(key: Key, shape=(), lo: float = 0.0, hi: float = 1.0,
     device = resolve_device(device)
     return _fill(shape, torch.float32, device, lambda a, b: _uniform_from_bits(
         bits_slice(key, a, b, device), lo, hi))
+
+
+def randint(key: Key, shape, minval: int, maxval: int, device=None
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), bitwise,
+    as an int64 tensor (indexing takes int64).
+
+    jax 0.9.0's ``_randint``: 32 bits from each half of ``split(key)``,
+    ``span = maxval − minval`` as uint32 (1 when ``maxval <= minval``),
+    ``m = (2¹⁶ mod span)² mod span`` and ``minval + ((hi mod span)·m +
+    lo mod span) mod span``, every product and sum wrapping modulo 2³² as
+    uint32 does.  torch has no uint32 ``%``: the bits are masked into
+    int64, where every remainder is of a non-negative value."""
+    device = resolve_device(device)
+    minval, maxval = int(minval), int(maxval)
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    mult = (((1 << 16) % span) ** 2 & MASK) % span
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device).to(torch.int64) & MASK
+    lo = random_bits(k2, shape, device).to(torch.int64) & MASK
+    off = ((hi % span) * mult) & MASK
+    off = ((off + lo % span) & MASK) % span
+    return off + minval
+
+
+def bernoulli(key: Key, p: float = 0.5, shape=(), device=None
+              ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform(key, shape) < p``
+    in f32, bitwise (a bool tensor)."""
+    return uniform(key, shape, device=device) < f32(p)
 
 
 # XLA's ErfInv for f32 (xla/hlo/builder/lib/math.cc, after Giles 2010):

@@ -3,6 +3,12 @@
 MGD's τ_x (input-sample change time) is the data pipeline's job: the
 driver asks for index n // τ_x at step n.  Every sampler is a pure
 function of the index, so a run is deterministic across restarts.
+Batch i of a procedural sampler is ``batch_fn(fold_in(prng_key(seed), i),
+B)`` on ``core.rng``'s threefry keys: the reference's batch i.
+
+``shard_chip_batch`` cuts a host batch into the contiguous per-chip
+slices a chip farm consumes (the reference's mesh placement,
+``shard_batch``, waits for ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -10,7 +16,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.perturbations import leaf_seed
+from repro_torch.core import rng
+from repro_torch.core.utils import tree_map
 from repro_torch.device import resolve_device
 from . import tasks
 
@@ -31,23 +38,15 @@ def dataset_sampler(x: torch.Tensor, y: torch.Tensor, batch_size: int, *,
     return sample_fn
 
 
-def sample_generator(seed: int, index: int, device) -> torch.Generator:
-    """A generator on ``device`` keyed on (seed, index)."""
-    hi = leaf_seed(seed, index, 1)
-    lo = leaf_seed(seed, index, 2)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((hi << 32) | lo)
-    return gen
-
-
 def generator_sampler(batch_fn: Callable, batch_size: int, *, seed=0,
                       as_dict_keys=("x", "y"), device=None):
-    """Index-seeded procedural sampler:
-    ``sample_fn(i) = batch_fn(generator keyed on (seed, i), batch_size)``."""
+    """Index-seeded procedural sampler: ``sample_fn(i) =
+    batch_fn(fold_in(prng_key(seed), i), batch_size, device=device)``."""
     dev = resolve_device(device)
+    base = rng.prng_key(seed)
 
     def sample_fn(i: int):
-        out = batch_fn(sample_generator(seed, i, dev), batch_size)
+        out = batch_fn(rng.fold_in(base, i), batch_size, device=dev)
         if isinstance(out, dict):
             return out
         return dict(zip(as_dict_keys, out))
@@ -59,5 +58,54 @@ def lm_sampler(batch_size: int, seq_len: int, vocab: int, *, seed=0,
                device=None):
     """Index-seeded Zipf-Markov LM batches (``tasks.lm_batch``)."""
     return generator_sampler(
-        lambda g, b: tasks.lm_batch(g, b, seq_len, vocab), batch_size,
-        seed=seed, device=device)
+        lambda k, b, device: tasks.lm_batch(k, b, seq_len, vocab,
+                                            device=device),
+        batch_size, seed=seed, device=device)
+
+
+def shard_batch(batch, mesh):
+    """Mesh placement of a batch: not ported (ROADMAP A15)."""
+    raise NotImplementedError(
+        "shard_batch places a batch on a device mesh, which is not ported "
+        "to repro_torch yet (ROADMAP A15, distribution); shard_chip_batch "
+        "cuts host slices per chip")
+
+
+def shard_chip_batch(batch, n_chips: int, chip: int):
+    """Chip ``chip``'s contiguous leading-dim shard out of ``n_chips``:
+    chip i consumes the rows pod i of an equal-k mesh would.  Pure
+    indexing on tensors or numpy leaves."""
+
+    def one(x):
+        per = x.shape[0] // n_chips
+        return x[chip * per:(chip + 1) * per]
+
+    return tree_map(one, batch)
+
+
+def _leaf_paths(node, path=()):
+    """``(path, leaf)`` in flatten order: dict keys sorted, sequences by
+    index (``jax.tree_util.tree_flatten_with_path``'s order)."""
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _leaf_paths(node[k], path + (k,))
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            yield from _leaf_paths(c, path + (i,))
+    else:
+        yield path, node
+
+
+def check_chip_shardable(batch, n_chips: int) -> None:
+    """Raise unless every batch leaf's leading dim splits evenly into
+    ``n_chips`` contiguous shards."""
+    for path, leaf in _leaf_paths(batch):
+        shape = getattr(leaf, "shape", ())
+        if not shape or shape[0] % n_chips:
+            name = "/".join(str(k) for k in path)
+            raise ValueError(
+                f"batch leaf {name!r} with shape {tuple(shape)} cannot be "
+                f"sharded over {n_chips} chips — its leading dim must be a "
+                f"multiple of the farm size")

@@ -1,7 +1,8 @@
 """Device resolution for the port's entry points.
 
-Every entry point that creates tensors (``mlp_init``, the samplers,
-``driver``, ``train_mgd``, ``convert.to_torch``) runs on the CUDA card
+Every entry point that creates tensors (``mlp_init``, the CNN inits,
+the batch functions and samplers, ``driver``, ``train_mgd``,
+``convert.to_torch``) runs on the CUDA card
 unless the caller passes ``device="cpu"``.  Without a card and without
 that request they raise: nothing falls back to the CPU silently.
 """

@@ -4,7 +4,9 @@ Parameters keep the JAX package's layout (``{"w": [d_in, d_out],
 "b": [d_out]}``, ``{"scale": [d]}``, ``{"table": [vocab, d]}``), so leaf
 ids and sign indices match it.  Compute dtype follows the input;
 normalization statistics are f32.  Init functions draw from an explicit
-``torch.Generator`` on the generator's device.
+``torch.Generator`` on the generator's device.  Convolutions take NHWC
+activations and HWIO weights, as the reference stores them, and permute
+only inside ``conv2d``/``maxpool2``.
 
 ``pdense`` is the perturbable counterpart of ``dense`` on the fused probe
 path: the weight matmul goes through the perturbed-matmul kernels, which
@@ -17,6 +19,7 @@ anchors every leaf to the global hash.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -57,6 +60,19 @@ def rmsnorm(p, x, eps=1e-5):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
@@ -150,3 +166,94 @@ def pembed(p, tokens, ids, probe):
     theta = (sgn * f32(probe.ctx.dtheta)).to(table.dtype)
     rows = table[tok]
     return tuple(pert.apply_signed(rows, theta, s) for s in probe.ctx.signs)
+
+
+# --- convolutions for the paper-scale CNNs ---------------------------------
+
+
+def conv2d_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
+                c_out: int, dtype=torch.float32, device=None):
+    """W [kh, kw, c_in, c_out] (HWIO, the reference's layout, so the
+    perturbation hash's row-major indices land on the same elements)
+    ~ N(0, 1)/sqrt(kh·kw·c_in) drawn from ``gen``; zero bias."""
+    scale = 1.0 / math.sqrt(kh * kw * c_in)
+    w = torch.randn((kh, kw, c_in, c_out), generator=gen,
+                    dtype=torch.float32, device=gen.device) * scale
+    return {"w": w.to(dtype).to(device),
+            "b": torch.zeros((c_out,), dtype=dtype, device=device)}
+
+
+def _same_pads(size: int, k: int, stride: int):
+    """XLA's SAME padding of one spatial dim: (low, high)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+@contextlib.contextmanager
+def _cudnn_full_f32():
+    """cuDNN's TF32 off for the enclosed calls, the caller's setting back
+    after them."""
+    cudnn = torch.backends.cudnn
+    tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = tf32
+
+
+class _Conv2dF32(torch.autograd.Function):
+    """``F.conv2d`` (NCHW, OIHW) whose forward and backward both run with
+    cuDNN's TF32 off, whatever the caller's setting."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding)
+        with _cudnn_full_f32():
+            return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding = ctx.conf
+        gx = gw = None
+        with _cudnn_full_f32():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(x.shape, w, gy, stride,
+                                                padding)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(x, w.shape, gy, stride,
+                                                 padding)
+        return gx, gw, None, None
+
+
+def conv2d(p, x, *, stride=1, padding="SAME"):
+    """x: [B, H, W, C] NHWC, W HWIO → [B, H', W', C_out] NHWC.
+
+    One ``torch.nn.functional.conv2d`` (the reference computes this conv
+    outside any Pallas kernel) in full f32 on a card, forward and
+    backward: cuDNN's TF32 is off for this call whatever the caller's
+    setting, since C̃ at Δθ = 1e-3 is a difference of two costs that TF32
+    rounding would swamp."""
+    w = p["w"]
+    kh, kw = w.shape[0], w.shape[1]
+    xc = x.permute(0, 3, 1, 2)                        # NCHW
+    if padding == "SAME":
+        (ht, hb), (wl, wr) = (_same_pads(x.shape[1], kh, stride),
+                              _same_pads(x.shape[2], kw, stride))
+        if (ht, wl) == (hb, wr):
+            pad = (ht, wl)
+        else:
+            xc, pad = F.pad(xc, (wl, wr, ht, hb)), (0, 0)
+    elif padding == "VALID":
+        pad = (0, 0)
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    y = _Conv2dF32.apply(xc, w.permute(3, 2, 0, 1), (stride, stride), pad)
+    return y.permute(0, 2, 3, 1) + p["b"]
+
+
+def maxpool2(x):
+    """2×2 max-pool, stride 2, VALID (floor). x: [B, H, W, C]."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)

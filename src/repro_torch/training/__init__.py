@@ -1,6 +1,8 @@
-"""Training loop for the MGD drivers, with checkpoint/resume."""
+"""Training loops: MGD with checkpoint/resume, and the backprop baseline."""
 from . import checkpoint
-from .train_loop import TrainLoopConfig, TrainResult, resolve_driver, train_mgd
+from .train_loop import (TrainLoopConfig, TrainResult, classification_accuracy,
+                         resolve_driver, train_backprop, train_mgd)
 
-__all__ = ["TrainLoopConfig", "TrainResult", "checkpoint", "resolve_driver",
+__all__ = ["TrainLoopConfig", "TrainResult", "checkpoint",
+           "classification_accuracy", "resolve_driver", "train_backprop",
            "train_mgd"]

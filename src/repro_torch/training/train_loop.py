@@ -1,4 +1,4 @@
-"""Training loop: run any MGD driver for a number of steps.
+"""Training loops: MGD (the paper) and backprop + SGD (the baseline).
 
 ``train_mgd`` consumes a ``repro_torch.api.MGDDriver`` or a config the
 registry resolves (``DriverConfig``, ``MGDConfig``, ``AnalogMGDConfig``).
@@ -23,6 +23,10 @@ and a run resumed from that checkpoint skips that rewrite.
 
 ``TrainResult.checkpoint_s`` holds the seconds of each checkpoint save
 and of the restore, device work fenced on both sides.
+
+``train_backprop`` is the comparison baseline: ``torch.autograd``
+gradients and plain SGD on the same loss_fn / sampler interface, so a
+comparison runs both algorithms on identical models and data.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ import torch
 from repro_torch.api.driver import MGDDriver, driver as build_driver, \
     replace_step, state_step
 from repro_torch.core.mgd import MGDState
-from repro_torch.core.utils import f32
+from repro_torch.core.utils import f32, tree_flatten, tree_unflatten
+from repro_torch.optim import sgd_init, sgd_step
 from . import checkpoint as ckpt
 
 
@@ -237,3 +242,63 @@ def train_mgd(
             ckpt_s.setdefault("save", []).append(time.perf_counter() - t_io)
     fence()
     return TrainResult(params, state, history, done, ckpt_s)
+
+
+def _grads(loss_fn, params, batch):
+    """∂loss/∂params through autograd, as a tree of params' structure;
+    the graph is freed before return."""
+    leaves, treedef = tree_flatten(params)
+    with torch.enable_grad():
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        loss = loss_fn(tree_unflatten(treedef, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return tree_unflatten(treedef, list(grads))
+
+
+def train_backprop(
+    loss_fn: Callable,
+    params,
+    sample_fn: Callable,
+    num_steps: int,
+    *,
+    eta: float,
+    momentum: float = 0.0,
+    chunk: int = 100,
+    eval_fn: Optional[Callable] = None,
+    eval_every: int = 0,
+    log: Optional[Callable] = print,
+) -> TrainResult:
+    """The paper's comparison baseline: backprop + plain SGD.
+
+    Runs whole chunks of ``chunk`` steps (step i reads ``sample_fn(i)``)
+    until at least ``num_steps`` are done, as the reference's scanned
+    chunks do; each chunk's history entry holds the cost of its last
+    step's own batch, taken after that step's update."""
+    opt_state = sgd_init(params, momentum)
+    history = []
+    done = 0
+    while done < num_steps:
+        for i in range(done, done + chunk):
+            batch = sample_fn(i)
+            params, opt_state = sgd_step(
+                params, _grads(loss_fn, params, batch), opt_state, eta=eta,
+                momentum=momentum)
+        with torch.no_grad():
+            loss = loss_fn(params, batch)
+        done += chunk
+        rec = {"cost": float(loss)}
+        if eval_fn and eval_every and (done % eval_every < chunk):
+            rec.update({k: float(v) for k, v in eval_fn(params).items()})
+        history.append((done, rec))
+        if log:
+            msg = " ".join(f"{k}={v:.4g}" for k, v in rec.items())
+            log(f"[bp ] step {done}/{num_steps} {msg}")
+    return TrainResult(params, opt_state, history, done)
+
+
+def classification_accuracy(apply_fn, params, x, y_onehot):
+    """Fraction of argmax matches, the paper's accuracy metric (a 0-dim
+    f32 tensor)."""
+    with torch.no_grad():
+        pred = apply_fn(params, x)
+    return (pred.argmax(-1) == y_onehot.argmax(-1)).float().mean()

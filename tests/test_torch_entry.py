@@ -19,6 +19,7 @@ import torch
 
 import repro_torch as rt
 from repro_torch import convert
+from repro_torch.core import rng
 from repro_torch.data import pipeline, tasks
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -76,7 +77,7 @@ def test_make_epoch_matches_stepwise():
 
 
 def test_train_mgd_on_cpu_records_history():
-    x, y = tasks.nist7x7_batch(pipeline.sample_generator(99, 0, "cpu"), 64)
+    x, y = tasks.nist7x7_batch(rng.prng_key(99), 64, device="cpu")
     params = rt.mlp_init(1, (49, 4, 4), device="cpu")
     logs = []
 

@@ -533,3 +533,120 @@ def test_resume_bit_exact_on_kernel_route(cuda_device, tmp_path):
         assert torch.equal(a, b)
     for a, b in zip(tree_leaves(cont.state), tree_leaves(res.state)):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+# --- the paper's CNNs and samplers (sixth slice) -----------------------------
+
+CNN_ATOL = 1e-5       # card against CPU, f32: cuDNN's and the CPU's sums
+
+
+def _conv_case(device, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    p = {"w": torch.randn((3, 3, 16, 32), generator=g) * 0.3,
+         "b": torch.randn((32,), generator=g)}
+    x = torch.randn((64, 14, 14, 16), generator=g)
+    return ({k: v.to(device) for k, v in p.items()}, x.to(device),
+            {k: v.double() for k, v in p.items()}, x.double())
+
+
+@pytest.mark.gpu
+def test_conv2d_and_maxpool2_card_equal_cpu(cuda_device):
+    from repro_torch.models import layers
+
+    p, x, pc, xc = _conv_case(cuda_device)
+    want = layers.conv2d({k: v.float() for k, v in pc.items()}, xc.float())
+    got = layers.conv2d(p, x)
+    assert got.shape == (64, 14, 14, 32)
+    assert (got.cpu() - want).abs().max().item() <= CNN_ATOL
+    pooled = layers.maxpool2(got)
+    assert pooled.shape == (64, 7, 7, 32)
+    assert torch.equal(pooled.cpu(), layers.maxpool2(got.cpu()))
+
+
+@pytest.mark.gpu
+def test_conv2d_on_the_card_runs_without_tf32(cuda_device):
+    """With the caller's cuDNN TF32 switched on, ``conv2d`` still computes
+    in f32, forward and backward (within 1e-5 of an f64 conv and its
+    weight gradient), while a plain TF32 conv on the same operands misses
+    that by far (10-bit mantissa); the caller's setting is restored."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+
+    p, x, pc, xc = _conv_case(cuda_device)
+    wc = pc["w"].clone().requires_grad_(True)
+    exact = F.conv2d(xc.permute(0, 3, 1, 2), wc.permute(3, 2, 0, 1),
+                     padding=1).permute(0, 2, 3, 1) + pc["b"]
+    gy = torch.randn(exact.shape, generator=torch.Generator().manual_seed(6),
+                     dtype=torch.float64)
+    (gw_exact,) = torch.autograd.grad((exact * gy).sum(), wc)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        w = p["w"].clone().requires_grad_(True)
+        got = layers.conv2d({"w": w, "b": p["b"]}, x)
+        (gw,) = torch.autograd.grad((got * gy.float().to(cuda_device)).sum(),
+                                    w)
+        assert torch.backends.cudnn.allow_tf32 is True
+        tf32 = F.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1) + p["b"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    err = (got.detach().double().cpu() - exact.detach()).abs().max().item()
+    err_tf32 = (tf32.double().cpu() - exact.detach()).abs().max().item()
+    assert err <= 1e-5 < 1e-3 <= err_tf32, (err, err_tf32)
+    # each weight gradient sums 64·14·14 products: f32 lands within 1e-6
+    # of the largest (TF32's 10-bit inputs would be ~1e-4 off)
+    scale = gw_exact.abs().max().item()
+    assert (gw.double().cpu() - gw_exact).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fashion", "cifar"])
+def test_cnn_apply_card_equal_cpu(cuda_device, name):
+    import repro_torch as rt
+    from repro_torch.core import rng
+    from repro_torch.data import tasks
+
+    init, apply, batch = {
+        "fashion": (rt.fashion_cnn_init, rt.fashion_cnn_apply,
+                    tasks.fashion_batch),
+        "cifar": (rt.cifar_cnn_init, rt.cifar_cnn_apply,
+                  tasks.cifar_batch)}[name]
+    p_cpu = init(0, device="cpu")
+    p = init(0, device=cuda_device)
+    x_cpu, y_cpu = batch(rng.prng_key(11), 64, device="cpu")
+    x, y = batch(rng.prng_key(11), 64, device=cuda_device)
+    assert torch.equal(y.cpu(), y_cpu)                  # labels bitwise
+    assert (x.cpu() - x_cpu).abs().max().item() <= 1e-5
+    got = apply(p, x_cpu.to(cuda_device))
+    assert got.shape == (64, 10)
+    assert (got.cpu() - apply(p_cpu, x_cpu)).abs().max().item() <= CNN_ATOL
+
+
+@pytest.mark.gpu
+def test_train_backprop_chunk_card_equal_cpu(cuda_device):
+    """One 8-step chunk of the Fashion CNN's backprop (η = 0.02, batch 64)
+    on the card and on the CPU from the same params and batches."""
+    import repro_torch as rt
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.data import pipeline, tasks
+
+    cpu_sample = pipeline.generator_sampler(tasks.fashion_batch, 64, seed=3,
+                                            device="cpu")
+
+    def loss(p, b):
+        return rt.mse(rt.fashion_cnn_apply(p, b["x"]), b["y"])
+
+    out = {}
+    for where in (cuda_device, torch.device("cpu")):
+        res = rt.train_backprop(
+            loss, rt.fashion_cnn_init(0, device=where),
+            lambda i: {k: v.to(where) for k, v in cpu_sample(i).items()},
+            8, eta=0.02, chunk=8, log=None)
+        out[where.type] = res
+    card, cpu = out["cuda"], out["cpu"]
+    assert abs(card.history[0][1]["cost"] - cpu.history[0][1]["cost"]) <= 1e-6
+    gap = max((a.cpu() - b).abs().max().item()
+              for a, b in zip(tree_leaves(card.params),
+                              tree_leaves(cpu.params)))
+    assert gap <= 1e-6, gap
