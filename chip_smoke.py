@@ -110,6 +110,27 @@ Phases, each fatal on failure (nothing is caught):
    steps/s, the sampler's ms a batch, held-out accuracy on 512 samples
    after 2000 MGD and 400 backprop steps, peak memory.
 
+11. Probe parallelism and the chip farm (4 pods or chips).  11a: NIST7x7
+   49-4-4 through ``driver("probe_parallel", ..., mesh=LocalMesh(pod=4))``,
+   fused central, Δθ = 1e-2, η = 0.1, seed 1, batch 4 (one sample a pod),
+   32 steps each against the plain route from the same state (phase 9's
+   limits: C̃ 1e-5, params 1e-4) and 32 timed: 8 SIMT pair launches and
+   one window-update launch with J = 4 over both weight matrices a step.
+   11b: phase 5's Qwen3-14B at 4 layers, bf16, 4 pods of batch 8 × seq 64
+   (global 32 × 64): 3 steps C̃-gated as in phase 5 (both controls must
+   miss), then 8 counted steps, 4 × 29 = 116 tensor-core pair launches
+   and one window-update launch (J = 4, 13 matrix leaves) a step; steps/s,
+   peak memory and the busy share under ``torch.profiler``.  11c:
+   ``simulated_chip_farm(4, (49, 4, 4))`` under ``driver(
+   "probe_parallel_external")`` with params and update on the card, 50
+   steps through the serial, thread, process and cluster-loopback
+   backends and a pipelined thread farm, each trajectory (C̃ and params)
+   bitwise the serial one's; the dyadic 4-chip ``LinearLaneChip`` farm
+   (``shard_batch=True``) bitwise the 4-pod step over 5 steps; a farm
+   with 10 % silent faults under retry + quarantine + MAD stays finite.
+   Printed: steps/s per backend, the share of it spent copying to the
+   host, ``pipeline_stats()``, ``n_used`` and the fault counts.
+
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
 eager torch ops.  Every phase prints its seconds.
@@ -816,7 +837,7 @@ def lm_driver(rt, cfg, dev, impl=None, seed=0, plant=None, **kw):
 
 
 def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
-                 plant=None, read_plant=None):
+                 plant=None, read_plant=None, make=None):
     """The first ``steps`` steps of the kernel run, each probed again
     from the same params, state and batch through the plain route and, as
     a control, through the kernel route with another seed's signs.  Fails
@@ -824,11 +845,15 @@ def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
     plain route's, and both controls (C̃ = 0, the other seed) miss it.
     With a ``plant``, the run writes through it and the two probes read
     through ``read_plant``, its readout alone (the same cost noise; their
-    writes are discarded).  Returns the params and state after those
-    steps, and the record."""
-    drv = lm_driver(rt, cfg, dev, plant=plant, **kw)
-    ref = lm_driver(rt, cfg, dev, "ref", plant=read_plant, **kw)
-    other = lm_driver(rt, cfg, dev, seed=1, plant=read_plant, **kw)
+    writes are discarded).  ``make(impl, seed)`` builds the three drivers
+    in place of ``lm_driver`` (phase 11's k-pod step).  Returns the params
+    and state after those steps, and the record."""
+    if make is None:
+        def make(impl, seed):
+            return lm_driver(rt, cfg, dev, impl, seed=seed,
+                             plant=read_plant if (impl or seed) else plant,
+                             **kw)
+    drv, ref, other = make(None, 0), make("ref", 0), make(None, 1)
     params, state = p0, drv.init(p0)
     cts, plain_cts, other_cts, costs = [], [], [], []
     for n in range(steps):
@@ -1281,7 +1306,7 @@ def resume_full_width(torch, rt, card, dev, steps=3, at=2):
 
 
 def same_state_steps(torch, drv, ref, params, state, sample, steps,
-                     ct_tol, p_tol):
+                     ct_tol, p_tol, what="paper model"):
     """``steps`` steps of ``drv``, each repeated by ``ref`` from the same
     params, state and batch: returns the largest C̃ and parameter gaps,
     the number of steps where anything differed, and the final params."""
@@ -1299,9 +1324,9 @@ def same_state_steps(torch, drv, ref, params, state, sample, steps,
         differ += int(ct > 0 or max(gaps) > 0)
         ct_gap, p_gap = max(ct_gap, ct), max(p_gap, *gaps)
         if not bool(torch.isfinite(aux["cost"])):
-            fail("paper model: a cost went non-finite")
+            fail(f"{what}: a cost went non-finite")
     if not (ct_gap <= ct_tol and p_gap <= p_tol):
-        fail(f"paper model: kernel route against plain from the same state: "
+        fail(f"{what}: kernel route against plain from the same state: "
              f"C̃ gap {ct_gap} (limit {ct_tol}), params {p_gap} "
              f"(limit {p_tol})")
     return dict(c_tilde_max_gap=ct_gap, param_max_gap=p_gap,
@@ -1645,6 +1670,308 @@ def paper_cnns(torch, rt, kernels, tasks, pipeline, card, dev):
     return out
 
 
+# -- phase 11: probe parallelism and the chip farm --------------------------
+
+PODS = 4
+PP_MLP_STEPS = 32
+PP_LM_CT_STEPS = 3
+PP_LM_STEPS = 8
+PP_LM_BATCH = 8             # a pod's batch: launch/train.py's 8 × seq 64
+FARM_STEPS = 50
+FARM_BATCH = 8
+FARM_LAW_STEPS = 5
+FARM_BACKENDS = ("serial", "thread", "process", "cluster", "thread+pipeline")
+
+
+class WindowRecorder:
+    """Wraps ``kernels.ops.mgd_update_window_group`` to record each call's
+    (leaves, J) — the launch counters say how often the window update ran,
+    this says how many leaves and windows one launch carried."""
+
+    def __init__(self, ops):
+        self.ops, self.orig, self.calls = ops, None, []
+
+    def __enter__(self):
+        self.orig = self.ops.mgd_update_window_group
+
+        def wrapped(leaves, lseeds, coefs, **kw):
+            leaves = list(leaves)
+            self.calls.append((len(leaves), int(coefs.shape[0])))
+            return self.orig(leaves, lseeds, coefs, **kw)
+
+        self.ops.mgd_update_window_group = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.mgd_update_window_group = self.orig
+
+
+def pp_expected(steps, per_pod_pairs, windows=1):
+    return dict(perturbed_matmul=0,
+                perturbed_matmul_pair=PODS * per_pod_pairs * steps,
+                mgd_update_window=windows * steps, mgd_update=0)
+
+
+def check_window_calls(rec, leaves, what):
+    """Every recorded window update carried ``leaves`` leaves and J = PODS
+    windows."""
+    bad = [c for c in rec.calls if c != (leaves, PODS)]
+    if not rec.calls or bad:
+        fail(f"{what}: window updates carried (leaves, J) {rec.calls}, "
+             f"expected ({leaves}, {PODS}) each")
+
+
+def pp_mlp(torch, rt, kernels, tasks, pipeline, card, dev):
+    """Phase 11a: NIST7x7 49-4-4 through ``driver("probe_parallel")``, 4
+    pods on one card, fused central; every step against the plain route
+    from the same state; then a timed counted run."""
+    from repro_torch.kernels import ops
+
+    def loss(p, b):
+        return rt.mse(rt.mlp_apply(p, b["x"]), b["y"])
+
+    def make(impl):
+        return rt.driver("probe_parallel", rt.DriverConfig(
+            dtheta=1e-2, eta=0.1, seed=1, fused=True, mode="central",
+            kernel_impl=impl), loss, probe_fn=rt.make_mlp_probe_fn(),
+            mesh=rt.LocalMesh(pod=PODS), device=dev)
+
+    # one sample a pod: batch i of the reference's sampler at batch 4
+    sample = pipeline.generator_sampler(tasks.nist7x7_batch, PODS, seed=7,
+                                        device=dev)
+    p0 = rt.mlp_init(2, MLP_SIZES, device=dev)
+    drv, ref = make(None), make("ref")
+    expected = pp_expected(PP_MLP_STEPS, 2)
+    totals = {name: 0 for name in SOURCES}
+    kernels.reset_launch_counts()
+    with WindowRecorder(ops) as rec:
+        t0 = time.perf_counter()
+        # phase 9's limits: C̃ 1e-5, params η·1e-5/Δθ = 1e-4
+        gate, params = same_state_steps(
+            torch, drv, ref, p0, drv.init(p0), sample, PP_MLP_STEPS, CT_ATOL,
+            0.1 * CT_ATOL / 1e-2, what="4-pod MLP")
+        torch.cuda.synchronize()
+        gate_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if counts != expected:
+        fail(f"4-pod MLP gate: launches {counts} != {expected}")
+    check_routes(kernels, counts, "simt", "4-pod MLP gate")
+    check_window_calls(rec, 2, "4-pod MLP")
+    for k, v in counts.items():
+        totals[k] += v
+    run = rt.make_epoch(drv, PP_MLP_STEPS, sample)
+    state = drv.init(params)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, aux = run(params, state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if counts != expected:
+        fail(f"4-pod MLP: launches {counts} != {expected}")
+    check_routes(kernels, counts, "simt", "4-pod MLP")
+    if not bool(torch.isfinite(aux["cost"]).all()):
+        fail("4-pod MLP: a cost went non-finite")
+    for k, v in counts.items():
+        totals[k] += v
+    out = dict(pods=PODS, steps=PP_MLP_STEPS, steps_per_s=PP_MLP_STEPS / dt,
+               gate_s=gate_s, **gate, launches_per_step={
+                   k: v / PP_MLP_STEPS for k, v in counts.items()},
+               window_calls=rec.calls[:1], last_cost=aux["cost"][-1].item(),
+               card=card)
+    print(json.dumps({"probe_parallel_mlp": out}), flush=True)
+    return out, totals
+
+
+def pp_transformer(torch, rt, kernels, card, dev):
+    """Phase 11b: Qwen3-14B at full width, LM_LAYERS layers, bf16, 4 pods
+    of batch 8 × seq 64 (global 32 × 64): the first PP_LM_CT_STEPS steps
+    C̃-gated against the plain route (controls: C̃ = 0, seed 1), then
+    PP_LM_STEPS counted steps."""
+    from repro_torch.kernels import ops
+
+    cfg = rt.get_config("qwen3-14b").replace(n_layers=LM_LAYERS)
+    sample = rt.lm_sampler(PODS * PP_LM_BATCH, 64, cfg.vocab, seed=0,
+                           device=dev)
+    p0 = rt.model_init(cfg, 0, device=dev)
+
+    def make(impl, seed):
+        return rt.driver("probe_parallel", rt.DriverConfig(
+            dtheta=1e-2, eta=1e-2, seed=seed, fused=True, mode="central",
+            kernel_impl=impl), lambda p, b: rt.model_loss(p, cfg, b),
+            probe_fn=rt.make_transformer_probe_fn(cfg),
+            mesh=rt.LocalMesh(pod=PODS), device=dev)
+
+    params, state, drv, gate = c_tilde_gate(
+        torch, rt, cfg, dev, sample, p0, {"pods": PODS},
+        steps=PP_LM_CT_STEPS, make=make)
+    print(json.dumps({"probe_parallel_lm_c_tilde": gate}), flush=True)
+    per_pod = LM_PER_LAYER * LM_LAYERS + 1
+    expected = pp_expected(PP_LM_STEPS, per_pod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with WindowRecorder(ops) as rec:
+        t0 = time.perf_counter()
+        params, state, aux = rt.make_epoch(drv, PP_LM_STEPS, sample)(
+            params, state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts != expected:
+        fail(f"4-pod transformer: launches {counts} != {expected}")
+    by_route = check_routes(kernels, counts, "tc", "4-pod transformer")
+    check_window_calls(rec, LM_WINDOW_LEAVES, "4-pod transformer")
+    if not bool(torch.isfinite(aux["cost"]).all()):
+        fail("4-pod transformer: a cost went non-finite")
+    prof = device_profile(
+        torch, lambda: rt.make_epoch(drv, 2, sample)(params, state), 2)
+    out = dict(pods=PODS, layers=LM_LAYERS,
+               batch_per_pod=[PP_LM_BATCH, 64],
+               main_path_steps=PP_LM_STEPS, steps_per_s=PP_LM_STEPS / dt,
+               s_per_step=dt / PP_LM_STEPS, peak_mem_gb=peak / 1e9,
+               last_cost=aux["cost"][-1].item(), launches=counts,
+               launches_by_kernel=by_route, window_calls=rec.calls[:1],
+               profile=prof, **gate, card=card)
+    print(json.dumps({"probe_parallel_lm": out}), flush=True)
+    del params, state, aux, drv, p0
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def farm_run(torch, rt, backend, batches, dev, *, pipeline=False, **kw):
+    """FARM_STEPS steps of ``driver("probe_parallel_external")`` over a
+    4-chip simulated farm; returns (C̃ per step, final params, seconds,
+    pipeline_stats, fault_summary, n_used per step)."""
+    from repro_torch.hardware import simulated_chip_farm
+
+    with simulated_chip_farm(PODS, MLP_SIZES, backend=backend,
+                             pipeline=pipeline, **kw) as farm:
+        drv = rt.driver("probe_parallel_external", rt.DriverConfig(
+            dtheta=2e-2, eta=0.125 * PODS, mode="central", seed=1),
+            plant=farm, device=dev)
+        params = rt.mlp_init(2, MLP_SIZES, device=dev)
+        state = drv.init(params)
+        cts, used = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            params, state, aux = drv.step(params, state, b)
+            cts.append(aux["c_tilde"])
+            used.append(aux.get("n_used"))
+        farm.fence()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats, faults = farm.pipeline_stats(), farm.fault_summary()
+    cts = torch.stack(cts).cpu()
+    used = [int(u) for u in used] if used[0] is not None else None
+    return cts, params, dt, stats, faults, used
+
+
+def chip_farm(torch, rt, tasks, pipeline, card, dev):
+    """Phase 11c: the chip farm with the optimizer on the card — the four
+    backends (and a pipelined thread farm) bitwise against serial, the
+    dyadic mesh ≡ farm law on the card, and 10 % silent faults under the
+    full policy."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.hardware import (ChipFarm, DeviceSpec, FaultPolicy,
+                                      FaultSpec, LinearLaneChip,
+                                      SimulatedAnalogChip)
+    from repro_torch.hardware.backend import (ClusterStubBackend,
+                                              loopback_transport)
+
+    sample = pipeline.generator_sampler(tasks.nist7x7_batch, FARM_BATCH,
+                                        seed=11, device=dev)
+    batches = [sample(i) for i in range(FARM_STEPS)]
+
+    def loopback():
+        specs = [DeviceSpec(SimulatedAnalogChip, (MLP_SIZES,),
+                            dict(seed=i, sigma_a=0.15, sigma_theta=0.01,
+                                 sigma_c=1e-4, py_busy_ms=0.0))
+                 for i in range(PODS)]
+        return ClusterStubBackend(transport=loopback_transport(specs))
+
+    out = {"backends": {}}
+    ref = None
+    for name in FARM_BACKENDS:
+        backend = {"cluster": loopback,
+                   "thread+pipeline": lambda: "thread"}.get(
+                       name, lambda: name)()
+        cts, params, dt, stats, _, _ = farm_run(
+            torch, rt, backend, batches, dev,
+            pipeline=name.endswith("pipeline"))
+        flat = torch.cat([x.reshape(-1).cpu() for x in tree_leaves(params)])
+        if ref is None:
+            ref = (cts, flat)
+        elif not (torch.equal(cts, ref[0]) and torch.equal(flat, ref[1])):
+            fail(f"farm {name}: trajectory differs from serial's (C̃ gap "
+                 f"{(cts - ref[0]).abs().max().item()}, params "
+                 f"{(flat - ref[1]).abs().max().item()})")
+        if not bool(torch.isfinite(flat).all()):
+            fail(f"farm {name}: params went non-finite")
+        out["backends"][name] = dict(
+            steps=FARM_STEPS, steps_per_s=FARM_STEPS / dt,
+            copy_share=stats["copy_s"] / dt, pipeline_stats=stats,
+            bitwise_vs_serial=True)
+        print(json.dumps({"farm": name, **out["backends"][name]}),
+              flush=True)
+
+    # the dyadic law: 4 pods on their batch blocks ≡ a 4-chip
+    # LinearLaneChip farm on the same shards, bitwise, optimizer on the card
+    cfg = rt.DriverConfig(dtheta=0.5, eta=0.5, mode="central", seed=5)
+    x = torch.tensor([[0, 0], [0, 1], [1, 0], [1, 1]] * 2,
+                     dtype=torch.float32, device=dev)
+    y = torch.tensor([[0], [1], [1], [0]] * 2, dtype=torch.float32,
+                     device=dev)
+    batch = {"x": x, "y": y}
+
+    def dyadic():
+        return [{"w": torch.tensor([[0.5], [-0.25]], device=dev),
+                 "b": torch.tensor([0.25], device=dev)}]
+
+    pods = rt.driver("probe_parallel", cfg,
+                     lambda p, b: rt.core.mae(b["y"],
+                                              rt.linear_apply(p, b["x"])),
+                     mesh=rt.LocalMesh(pod=PODS), device=dev)
+    with ChipFarm([LinearLaneChip() for _ in range(PODS)],
+                  shard_batch=True) as farm:
+        ext = rt.driver("probe_parallel_external", cfg, plant=farm,
+                        device=dev)
+        p_m, p_f = dyadic(), dyadic()
+        s_m, s_f = pods.init(p_m), ext.init(p_f)
+        for step in range(FARM_LAW_STEPS):
+            p_m, s_m, a_m = pods.step(p_m, s_m, batch)
+            p_f, s_f, a_f = ext.step(p_f, s_f, batch)
+            if not (torch.equal(a_m["c_tilde"], a_f["c_tilde"]) and all(
+                    torch.equal(a, b) for a, b in
+                    zip(tree_leaves(p_m), tree_leaves(p_f)))):
+                fail(f"dyadic law: 4 pods and the 4-chip farm differ at "
+                     f"step {step}")
+    out["dyadic_law"] = dict(steps=FARM_LAW_STEPS, bitwise=True,
+                             final_c_tilde=a_m["c_tilde"].item())
+
+    # 10 % silent faults (NaN and outliers) under retry + quarantine + MAD
+    policy = FaultPolicy(timeout_s=5.0, retries=3, backoff_s=0.01,
+                         backoff_max_s=0.1, quarantine_after=4,
+                         reprobe_every=60, aggregate="mad", mad_threshold=8.0)
+    cts, params, dt, stats, faults, used = farm_run(
+        torch, rt, "thread", batches, dev, sigma_theta=0.0,
+        faults=FaultSpec(nan=0.05, outlier=0.05, outlier_scale=50.0),
+        fault_seed=1000, fault_policy=policy)
+    finite = bool(torch.isfinite(cts).all()) and all(
+        bool(torch.isfinite(x).all()) for x in tree_leaves(params))
+    if not finite:
+        fail(f"faulty farm: non-finite C̃ or params ({faults})")
+    out["silent_faults_10pct"] = dict(
+        steps=FARM_STEPS, steps_per_s=FARM_STEPS / dt, n_used=used,
+        min_n_used=min(used), faults=faults, card=card)
+    print(json.dumps({"farm": "silent_faults_10pct",
+                      **out["silent_faults_10pct"]}), flush=True)
+    return out
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -1750,7 +2077,25 @@ def main(argv=None) -> int:
     cnns = paper_cnns(torch, rt, kernels, tasks, pipeline, card, dev)
     done(10, t0)
 
-    for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts):
+    # -- phase 11: probe parallelism (4 pods) and the chip farm -------------
+    t0 = time.perf_counter()
+    pp = {}
+    pp["mlp"], pp_mlp_counts = pp_mlp(torch, rt, kernels, tasks, pipeline,
+                                      card, dev)
+    t_a = time.perf_counter()
+    pp["transformer"], pp_lm_counts = pp_transformer(torch, rt, kernels,
+                                                     card, dev)
+    t_b = time.perf_counter()
+    pp["farm"] = chip_farm(torch, rt, tasks, pipeline, card, dev)
+    pp["seconds"] = {"11a": t_a - t0, "11b": t_b - t_a,
+                     "11c": time.perf_counter() - t_b}
+    print(f"phase 11: 11a {pp['seconds']['11a']:.1f} s, 11b "
+          f"{pp['seconds']['11b']:.1f} s, 11c {pp['seconds']['11c']:.1f} s",
+          flush=True)
+    done(11, t0)
+
+    for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
+                   pp_mlp_counts, pp_lm_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -1759,7 +2104,8 @@ def main(argv=None) -> int:
                   "mgd_update": ([5120, 17408], "bfloat16", 4)}
     by_kernel = {name: {"tc": 0, "simt": 0}
                  for name in kernels.MATMUL_WRAPPERS}
-    for rec in [*results.values(), *lm_results.values(), deep, imperfect]:
+    for rec in [*results.values(), *lm_results.values(), deep, imperfect,
+                pp["transformer"]]:
         for name, routes in rec.get("launches_by_kernel", {}).items():
             for r, v in routes.items():
                 by_kernel[name][r] += v
@@ -1798,7 +2144,8 @@ def main(argv=None) -> int:
             shapes=recs, train=results, profile=profiles,
             transformer=lm_results, full_depth=deep,
             imperfect_device=imperfect, resume=resume, paper_model=paper,
-            paper_cnns=cnns, phase_s=phase_s, ptxas=ptxas_summary(reports)), indent=1))
+            paper_cnns=cnns, probe_parallel=pp, phase_s=phase_s,
+            ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

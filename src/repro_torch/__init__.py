@@ -32,6 +32,20 @@ CIFAR-10 stand-ins, beside the backprop baseline::
                                                 seed=1), loss)
     res = rt.train_backprop(loss, params, sample, 400, eta=0.02)
 
+Probe parallelism runs k pods, each probing its own perturbation on its
+own share of the batch, one after another on the card; a chip farm fans
+the same k probes out to k external chips behind a host boundary::
+
+    mgd = rt.driver("probe_parallel", rt.DriverConfig(dtheta=1e-2, eta=0.1,
+                                                      mode="central",
+                                                      fused=True),
+                    loss_fn, probe_fn=rt.make_mlp_probe_fn(),
+                    mesh=rt.LocalMesh(pod=4))
+    farm = rt.hardware.simulated_chip_farm(4, (49, 4, 4), backend="thread")
+    ext = rt.driver("probe_parallel_external",
+                    rt.DriverConfig(dtheta=1e-2, eta=0.1, mode="central"),
+                    plant=farm)
+
 Imperfect devices (``hardware``: noisy, quantized and drifting plants
 with the reference's counter-keyed threefry noise), Algorithm 2
 (``driver("analog", ...)``) and checkpoint/resume with scheduled
@@ -45,10 +59,12 @@ entry point's kernel are CUDA C++ for sm_90a under ``kernels/csrc``,
 built with nvcc on first use; on CPU tensors their plain PyTorch versions
 run instead.
 """
-from .api import (ALGORITHMS, DriverConfig, MGDDriver, driver, make_epoch,
-                  register_driver, replace_step, state_step)
-from .core import (AnalogMGDConfig, AnalogMGDState, MGDConfig, MGDState,
-                   build_mgd_step, mgd_init, mse)
+from .api import (ALGORITHMS, DriverConfig, MGDDriver, ProbeParallelState,
+                  driver, make_epoch, register_driver, replace_step,
+                  state_step)
+from .core import (AnalogMGDConfig, AnalogMGDState, LocalMesh, MGDConfig,
+                   MGDState, build_mgd_step, mgd_init, mse)
+from . import hardware
 from .configs import get_config, get_smoke_config
 from .data import dataset_sampler, generator_sampler, lm_sampler, tasks
 from .models import (ArchConfig, cifar_cnn_apply, cifar_cnn_init, cnn_apply,
@@ -65,7 +81,8 @@ from .training import (TrainLoopConfig, TrainResult, classification_accuracy,
 train = train_mgd
 
 __all__ = [
-    "ALGORITHMS", "DriverConfig", "MGDDriver", "driver", "make_epoch",
+    "ALGORITHMS", "DriverConfig", "MGDDriver", "ProbeParallelState",
+    "LocalMesh", "driver", "make_epoch", "hardware",
     "register_driver", "replace_step", "state_step",
     "MGDConfig", "MGDState", "build_mgd_step", "mgd_init", "mse",
     "AnalogMGDConfig", "AnalogMGDState",

@@ -4,9 +4,9 @@ verb ``train`` (``train_mgd``, as in the reference's front door).
 ``train`` and the loop's config dataclasses resolve lazily, so that
 importing the driver surface alone does not pull in the training loop.
 """
-from .driver import (ALGORITHMS, DriverConfig, MGDDriver, as_analog_config,
-                     as_mgd_config, driver, make_epoch, register_driver,
-                     replace_step, state_step)
+from .driver import (ALGORITHMS, DriverConfig, MGDDriver, ProbeParallelState,
+                     as_analog_config, as_mgd_config, driver, make_epoch,
+                     register_driver, replace_step, state_step)
 
 _LAZY = {
     "train": "train_mgd",
@@ -15,7 +15,8 @@ _LAZY = {
     "TrainResult": "TrainResult",
 }
 
-__all__ = ["ALGORITHMS", "DriverConfig", "MGDDriver", "as_analog_config",
+__all__ = ["ALGORITHMS", "DriverConfig", "MGDDriver", "ProbeParallelState",
+           "as_analog_config",
            "as_mgd_config", "driver", "make_epoch", "register_driver",
            "replace_step", "state_step"] + sorted(_LAZY)
 

@@ -10,8 +10,13 @@ the standardized ``aux`` keys ``cost``, ``c_tilde`` and
 ``grad_norm_proxy`` (|C̃|/Δθ), plus ``updated`` for the discrete driver.
 
 The registry holds ``"discrete"`` (Algorithm 1, incl. the fused CUDA
-path) and ``"analog"`` (Algorithm 2).  The probe-parallel algorithms of
-the JAX package's registry raise with the ROADMAP item that ports them.
+path), ``"analog"`` (Algorithm 2), ``"probe_parallel"`` (k pods, each
+probing its own perturbation on its own batch share, run one after
+another on the card: ``mesh=LocalMesh(pod=k)``) and
+``"probe_parallel_external"`` (the same averaged update over k external
+chips: ``plant=ChipFarm(...)``).  The probe-parallel drivers carry a
+``ProbeParallelState`` (the step counter alone) and report
+``aux["c_tilde"] = mean|C̃_k|``.
 """
 from __future__ import annotations
 
@@ -25,12 +30,8 @@ from repro_torch.device import resolve_device
 
 Pytree = Any
 
-ALGORITHMS = ("discrete", "analog")
-_NOT_PORTED = {
-    "probe_parallel": "A11 (probe parallelism)",
-    "probe_parallel_external": "A11/A12 (probe parallelism over external "
-                               "chips)",
-}
+ALGORITHMS = ("discrete", "analog", "probe_parallel",
+              "probe_parallel_external")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +151,14 @@ def as_analog_config(cfg):
         cost_noise=cfg.cost_noise)
 
 
+class ProbeParallelState(NamedTuple):
+    """Probe-parallel carries no optimizer buffers — parameters update
+    every step from the k gathered scalars; only the counter remains (a
+    host int)."""
+
+    step: int
+
+
 class MGDDriver(NamedTuple):
     """The ``(init, step)`` pair plus construction metadata: ``tau_x`` for
     sampler pacing, ``config`` the resolved algorithm config, ``plant``
@@ -204,10 +213,6 @@ def driver(algorithm: str, cfg=None, loss_fn: Optional[Callable] = None, *,
     ``device`` is where the run lives: the CUDA card unless the caller
     passes ``device="cpu"``; without a card that request is required.
     """
-    if algorithm in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {algorithm!r} algorithm is not ported to repro_torch yet "
-            f"(ROADMAP {_NOT_PORTED[algorithm]}); use the JAX package")
     if algorithm not in _REGISTRY:
         raise ValueError(f"unknown algorithm {algorithm!r}; registered: "
                          f"{sorted(_REGISTRY)}")
@@ -291,6 +296,113 @@ def _build_analog(cfg, loss_fn, *, plant=None, probe_fn=None, mesh=None,
 
     return MGDDriver(init=init, step=step, algorithm="analog", config=acfg,
                      tau_x=1, plant=plant, device=device)
+
+
+def _probe_parallel_driver(raw, mcfg, algorithm, plant, device) -> MGDDriver:
+    """The probe-parallel drivers' shared (init, step) over
+    ``raw(params, step, batch) -> (params, metrics)``: the state is the
+    step counter, and ``aux["c_tilde"]`` is ``mean|C̃_k|``."""
+
+    def init(params):
+        check_on_device(params, device)
+        return ProbeParallelState(step=0)
+
+    def step(params, state, batch):
+        params, m = raw(params, state.step, batch)
+        aux = _standard_aux(m, m["c_tilde_mean"], mcfg.dtheta)
+        aux["c_tilde"] = m["c_tilde_mean"]
+        return params, ProbeParallelState(step=state.step + 1), aux
+
+    return MGDDriver(init=init, step=step, algorithm=algorithm, config=mcfg,
+                     tau_x=mcfg.tau_x, plant=plant, device=device)
+
+
+@register_driver("probe_parallel")
+def _build_probe_parallel(cfg, loss_fn, *, plant=None, probe_fn=None,
+                          mesh=None, total_params=None, device=None,
+                          probe_axis="pod", data_axis=None, param_specs=None,
+                          batch_specs=None) -> MGDDriver:
+    """Probe-parallel MGD: the k pods of ``mesh``'s probe axis, one after
+    another on ``device`` (see ``core.probe_parallel``)."""
+    from repro_torch.core.probe_parallel import build_probe_parallel_step
+
+    if mesh is None:
+        raise ValueError("repro_torch.driver('probe_parallel', ...) needs a "
+                         "mesh= with the probe axis (default name 'pod'), "
+                         "e.g. LocalMesh(pod=4) — each slice along it "
+                         "evaluates one probe")
+    fused = getattr(cfg, "fused", False)
+    if probe_fn is not None and not fused:
+        raise ValueError("probe_parallel only takes a probe_fn on its fused "
+                         "path — set DriverConfig(fused=True) so every pod "
+                         "probes through the CUDA kernels")
+    if isinstance(cfg, DriverConfig) and cfg.probes != 1:
+        raise ValueError(f"probes={cfg.probes} conflicts with "
+                         "probe_parallel: the probe count IS the mesh's "
+                         f"{probe_axis!r} axis size — leave probes=1")
+    mcfg = as_mgd_config(cfg)
+    if mcfg.tau_theta != 1 or mcfg.replay or mcfg.staleness:
+        raise ValueError("probe_parallel updates every step (tau_theta=1, "
+                         "no replay/staleness) — temporal integration "
+                         "composes at the driver level, not inside the "
+                         "pod step")
+    raw = build_probe_parallel_step(
+        loss_fn, mcfg, mesh, probe_axis=probe_axis, data_axis=data_axis,
+        param_specs=param_specs, batch_specs=batch_specs, plant=plant,
+        probe_fn=probe_fn)
+
+    return _probe_parallel_driver(raw, mcfg, "probe_parallel", plant, device)
+
+
+@register_driver("probe_parallel_external")
+def _build_probe_parallel_external(cfg, loss_fn, *, plant=None, probe_fn=None,
+                                   mesh=None, total_params=None,
+                                   device=None) -> MGDDriver:
+    """Probe-parallel MGD over k EXTERNAL chips (the §6 chip farm): the
+    same averaged update as ``probe_parallel``, fanned out host-side to a
+    ``hardware.farm.ChipFarm``.  The perturbations and the update live on
+    ``device``.
+
+    A farm armed with a ``hardware.FaultPolicy`` gains the fault-tolerant
+    step: failed/quarantined/outlier chips are masked out of the average
+    (η effectively rescaled by the live chip count — see
+    ``core.probe_parallel``) and the aux metrics gain ``n_valid`` /
+    ``n_used`` live-chip counts."""
+    from repro_torch.core.probe_parallel import \
+        build_probe_parallel_external_step
+    from repro_torch.hardware.farm import ChipFarm
+
+    if mesh is not None:
+        raise ValueError("probe_parallel_external fans probes out host-side "
+                         "— a mesh only parameterizes "
+                         "repro_torch.driver('probe_parallel', ...)")
+    if probe_fn is not None:
+        raise ValueError("probe_parallel_external has no fused probe path — "
+                         "the chips evaluate their own probes behind the "
+                         "host boundary")
+    if not isinstance(plant, ChipFarm):
+        raise ValueError("repro_torch.driver('probe_parallel_external', "
+                         "...) needs plant=ChipFarm(...) — k external chips "
+                         "behind one host boundary "
+                         "(repro_torch.hardware.simulated_chip_farm builds "
+                         "a reference farm)")
+    if loss_fn is not None:
+        raise ValueError("probe_parallel_external has no in-process loss — "
+                         "the chips ARE the cost oracle; pass loss_fn=None")
+    if isinstance(cfg, DriverConfig) and cfg.probes != 1:
+        raise ValueError(f"probes={cfg.probes} conflicts with "
+                         "probe_parallel_external: the probe count IS the "
+                         "farm size — leave probes=1")
+    mcfg = as_mgd_config(cfg)
+    if mcfg.tau_theta != 1 or mcfg.replay or mcfg.staleness:
+        raise ValueError("probe_parallel_external updates every step "
+                         "(tau_theta=1, no replay/staleness) — temporal "
+                         "integration composes at the driver level, not "
+                         "across the host boundary")
+    raw = build_probe_parallel_external_step(mcfg, plant)
+
+    return _probe_parallel_driver(raw, mcfg, "probe_parallel_external",
+                                  plant, device)
 
 
 def make_epoch(drv: MGDDriver, steps_per_call: int,

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from . import perturbations as pert
-from .perturbations import MASK
+from .probe_parallel import pod_seed
 from .utils import (f32, leaf_meta, tree_add, tree_axpy, tree_flatten,
                     tree_leaves, tree_map, tree_scale, tree_unflatten,
                     tree_zeros_like)
@@ -157,9 +157,32 @@ def _resolve_plant(loss_fn, cfg, *, probe_fn=None, plant=None):
 
 
 def _probe_seed(cfg: MGDConfig, probe: int) -> int:
-    """Distinct seed per probe, uint32: seed + probe·0x9E3779B9; probe 0
-    is ``cfg.seed`` itself."""
-    return (int(cfg.seed) + int(probe) * 0x9E3779B9) & MASK
+    """Distinct seed per probe, uint32: ``pod_seed(cfg.seed, probe)``;
+    probe 0 is ``cfg.seed`` itself."""
+    return pod_seed(cfg.seed, probe)
+
+
+def fused_leaf_updates(cfg: MGDConfig, params, seeds_of, coefs, alpha,
+                       small_update):
+    """ndim ≥ 2 leaves through one grouped window update — leaf ``lid``'s
+    window seeds are ``seeds_of(lid)``, they reach the device in one copy,
+    and on the card it is one launch — small leaves through
+    ``small_update(leaf, lid)``."""
+    leaves, treedef = tree_flatten(params)
+    metas = leaf_meta(params)
+    mats = [(lid, leaf) for (lid, _, _), leaf in zip(metas, leaves)
+            if leaf.dim() >= 2]
+    updated = []
+    if mats:
+        seeds = kops.seeds_tensor([seeds_of(lid) for lid, _ in mats],
+                                  leaves[0].device)
+        updated = kops.mgd_update_window_group(
+            [leaf for _, leaf in mats], seeds, coefs, alpha=alpha,
+            dtheta=cfg.dtheta, impl=cfg.kernel_impl)
+    updated = iter(updated)
+    out = [next(updated) if leaf.dim() >= 2 else small_update(leaf, lid)
+           for (lid, _, _), leaf in zip(metas, leaves)]
+    return tree_unflatten(treedef, out)
 
 
 def _take_slots(buf: torch.Tensor, slots) -> torch.Tensor:
@@ -199,8 +222,15 @@ def build_mgd_step(
         raise ValueError("cfg.fused=True needs a probe_fn (the model's "
                          "perturbed-apply interface) on the plant")
     if plant.meta.external:
-        raise NotImplementedError("external plants (host-boundary chips) "
-                                  "are not ported yet (ROADMAP A12)")
+        # The reference's refusal, kept as it is: its traced step cannot
+        # put an ordered host callback inside lax.cond (forward mode's C₀
+        # refresh, every windowed update).  This eager step could drive
+        # those, but that would be a feature the JAX package lacks.
+        if cfg.mode != "central" or cfg.tau_theta != 1 or cfg.replay:
+            raise ValueError("external plants need mode='central', "
+                             "tau_theta=1, replay=False — the only "
+                             "cond-free step an ordered host callback "
+                             "can ride (see hardware/external.py)")
 
     inv_d2 = 1.0 / (cfg.dtheta * cfg.dtheta)
     HALF = f32(0.5)
@@ -293,26 +323,6 @@ def build_mgd_step(
             params, batch, _probe(n, (1.0,)), step=n, tags=(1,))[0]
         return c_pert - c0, c0, c0
 
-    def _fused_leaf_updates(params, seeds_of, coefs, alpha, small_update):
-        """ndim ≥ 2 leaves through one grouped window update (their seeds
-        reach the device in one copy; on the card one launch), small
-        leaves through ``small_update(leaf, lid)``."""
-        leaves, treedef = tree_flatten(params)
-        metas = leaf_meta(params)
-        mats = [(lid, leaf) for (lid, _, _), leaf in zip(metas, leaves)
-                if leaf.dim() >= 2]
-        updated = []
-        if mats:
-            seeds = kops.seeds_tensor([seeds_of(lid) for lid, _ in mats],
-                                      leaves[0].device)
-            updated = kops.mgd_update_window_group(
-                [leaf for _, leaf in mats], seeds, coefs, alpha=alpha,
-                dtheta=cfg.dtheta, impl=cfg.kernel_impl)
-        updated = iter(updated)
-        out = [next(updated) if leaf.dim() >= 2 else small_update(leaf, lid)
-               for (lid, _, _), leaf in zip(metas, leaves)]
-        return tree_unflatten(treedef, out)
-
     def fused_update_tau1(params, n, c_tilde):
         """θ ← θ − η·C̃·θ̃/Δθ² with θ̃ regenerated in-kernel (τ_θ = 1)."""
         seed = _probe_seed(cfg, 0)
@@ -331,8 +341,8 @@ def build_mgd_step(
         def seeds_of(lid):
             return [pert.leaf_seed(seed, n // cfg.tau_p, lid)]
 
-        return _fused_leaf_updates(params, seeds_of, s.reshape(1), -cfg.eta,
-                                   small)
+        return fused_leaf_updates(cfg, params, seeds_of, s.reshape(1),
+                                  -cfg.eta, small)
 
     def window_steps(n):
         return [n - (cfg.tau_theta - 1) - cfg.staleness + j
@@ -360,7 +370,7 @@ def build_mgd_step(
         def seeds_of(lid):
             return [pert.leaf_seed(seed, s // cfg.tau_p, lid) for s in steps]
 
-        return _fused_leaf_updates(params, seeds_of, coefs, 1.0, small)
+        return fused_leaf_updates(cfg, params, seeds_of, coefs, 1.0, small)
 
     def record(replay_c, n, c_tilde):
         replay_c = replay_c.clone()

@@ -15,8 +15,8 @@ scalar cost.  ``Plant`` is that protocol:
   kernels), never materialized.
 
 ``PlantMeta`` carries static device metadata.  The imperfect devices are
-in ``plants.py``; external plants remain in the JAX package (ROADMAP
-A12).
+in ``plants.py``; the host boundary (``ExternalPlant``, ``ChipFarm``) in
+``external.py`` and ``farm.py``.
 """
 from __future__ import annotations
 

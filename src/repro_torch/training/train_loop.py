@@ -3,7 +3,11 @@
 ``train_mgd`` consumes a ``repro_torch.api.MGDDriver`` or a config the
 registry resolves (``DriverConfig``, ``MGDConfig``, ``AnalogMGDConfig``).
 It runs ``chunk`` steps between host reads, evaluates on a cadence and
-records one history entry per chunk.
+records one history entry per chunk.  The loop is eager, so external
+plants (``ExternalPlant``, ``ChipFarm``) run step by step like any
+other; a plant that keeps writes in flight (a pipelined farm) is fenced
+before every eval, recalibration and checkpoint, and at the end, and a
+fault-tolerant plant's fault summary is logged once at the end.
 
 Checkpoints carry the driver's FULL state next to the params (whatever
 the algorithm keeps: replay window, accumulator, momentum, filter
@@ -241,6 +245,14 @@ def train_mgd(
                              "seed": int(getattr(drv.config, "seed", 0))})
             ckpt_s.setdefault("save", []).append(time.perf_counter() - t_io)
     fence()
+    # fault-tolerant plants (ExternalPlant/ChipFarm with a FaultPolicy)
+    # expose a telemetry summary — surface it once, so a run that survived
+    # faults says so instead of looking clean
+    fault_summary = getattr(drv.plant, "fault_summary", None)
+    if loop.log and callable(fault_summary):
+        summary = fault_summary()
+        if summary.get("events"):
+            loop.log(f"[mgd] fault-tolerance summary: {summary}")
     return TrainResult(params, state, history, done, ckpt_s)
 
 

@@ -1,10 +1,14 @@
-"""The port's benchmark helpers and its Table 2 twin, on the CPU.
+"""The port's benchmark helpers and its Table 2 and fault-tolerance
+twins, on the CPU.
 
 ``repro_torch.benchmarks.common`` is the twin of ``benchmarks/common.py``;
 ``repro_torch.benchmarks.table2_datasets --smoke`` runs Table 2 with
 every step budget cut by 100 and must write the reference's rows, name
 for name (read from ``benchmarks/table2_datasets.py``), with its
 parameter counts.  The full budgets run on the card.
+``repro_torch.benchmarks.fault_tolerance --smoke`` (400 steps a farm, the
+committed baseline's budget) must write the reference's rows and pass
+``benchmarks.check_regression`` against ``artifacts/bench``, unedited.
 """
 import json
 import pathlib
@@ -45,3 +49,25 @@ def test_table2_twin_smoke_on_cpu(tmp_path):
     assert [r["run"] for r in out["runs"]][:2] == ["xor_mgd",
                                                    "nist7x7_mgd_1e4"]
     assert all(r["steps"] >= 1 for r in out["runs"])
+
+
+def test_fault_tolerance_twin_smoke_passes_the_gate(tmp_path):
+    """The fault-tolerance twin at the committed baseline's budget: the
+    reference's rows, name for name, gated by the reference's
+    ``check_regression`` (retry-healed runs exactly 1.0, resume bitwise,
+    the hold fractions and clean accuracy within its bounds)."""
+    from benchmarks import check_regression
+    from repro_torch.benchmarks import fault_tolerance as ft
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    ref = (root / "benchmarks" / "fault_tolerance.py").read_text()
+    names = re.findall(r'"name": "(\w+)"', ref)
+    assert ft.main(["--smoke", "--device", "cpu", "--out",
+                    str(tmp_path)]) == 0
+    out = json.loads((tmp_path / "fault_tolerance.json").read_text())
+    assert [r["name"] for r in out["rows"]] == names
+    values = {r["name"]: r["value"] for r in out["rows"]}
+    assert values["hold_frac_retry_transient"] == 1.0
+    assert values["resume_bitexact"] == 1.0
+    assert check_regression.compare_dirs(
+        str(tmp_path), str(root / "artifacts" / "bench")) == 0

@@ -650,3 +650,155 @@ def test_train_backprop_chunk_card_equal_cpu(cuda_device):
               for a, b in zip(tree_leaves(card.params),
                               tree_leaves(cpu.params)))
     assert gap <= 1e-6, gap
+
+
+# -- probe parallelism and the chip farm on the card ------------------------
+
+
+def _nist_batches(dev, batch, n, seed=7):
+    from repro_torch.data import pipeline, tasks
+    sample = pipeline.generator_sampler(tasks.nist7x7_batch, batch,
+                                        seed=seed, device=dev)
+    return [sample(i) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_cuda_probe_parallel_mlp_matches_plain(cuda_device):
+    """4 pods of the 49-4-4 MLP, fused central on the kernels, each step
+    against the plain route from the same state: C̃ within 1e-5 and params
+    within 1e-4 (chip_smoke phase 11a's limits), with 8 SIMT pair launches
+    and one window-update launch a step."""
+    import repro_torch as rt
+    from repro_torch.core.utils import tree_leaves
+
+    def loss(p, b):
+        return rt.mse(rt.mlp_apply(p, b["x"]), b["y"])
+
+    def make(impl):
+        return rt.driver("probe_parallel", rt.DriverConfig(
+            dtheta=1e-2, eta=0.1, seed=1, fused=True, mode="central",
+            kernel_impl=impl), loss, probe_fn=rt.make_mlp_probe_fn(),
+            mesh=rt.LocalMesh(pod=4), device=cuda_device)
+
+    drv, ref = make(None), make("ref")
+    params = rt.mlp_init(2, (49, 4, 4), device=cuda_device)
+    state = drv.init(params)
+    kernels.reset_launch_counts()
+    steps = 8
+    for batch in _nist_batches(cuda_device, 4, steps):
+        p_ref, _, a_ref = ref.step(params, state, batch)
+        params, state, aux = drv.step(params, state, batch)
+        assert abs(aux["c_tilde"].item() - a_ref["c_tilde"].item()) <= 1e-5
+        for a, b in zip(tree_leaves(params), tree_leaves(p_ref)):
+            assert (a - b).abs().max().item() <= 1e-4
+    counts = kernels.launch_counts()
+    assert counts == dict(perturbed_matmul=0,
+                          perturbed_matmul_pair=4 * 2 * steps,
+                          mgd_update_window=steps, mgd_update=0)
+    assert kernels.route_launch_counts()["perturbed_matmul_pair"]["simt"] \
+        == 4 * 2 * steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_cuda_pod_window_update_matches_plain(cuda_device, dtype):
+    """The k-pod update's one grouped window launch (J = 4) against its
+    plain version on the same leaves: bitwise, f32 and bf16."""
+    from repro_torch.core import probe_parallel as pp
+    from repro_torch.core.mgd import MGDConfig
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    params = [{"w": (torch.randn((49, 4), generator=g, device=cuda_device)
+                     * 0.3).to(dtype),
+               "b": torch.zeros(4, device=cuda_device, dtype=dtype)},
+              {"w": (torch.randn((4, 4), generator=g, device=cuda_device)
+                     * 0.3).to(dtype),
+               "b": torch.zeros(4, device=cuda_device, dtype=dtype)}]
+    coefs = torch.tensor([0.5, -1.25, 2.0, -0.75], device=cuda_device)
+    cfg = MGDConfig(dtheta=1e-2, eta=0.1, seed=1, mode="central",
+                    fused=True)
+    before = kernels.launch_counts()["mgd_update_window"]
+    got = pp._fused_pod_update(cfg, params, 5, coefs, 4)
+    assert kernels.launch_counts()["mgd_update_window"] == before + 1
+    want = pp._fused_pod_update(
+        MGDConfig(dtheta=1e-2, eta=0.1, seed=1, mode="central", fused=True,
+                  kernel_impl="ref"), params, 5, coefs, 4)
+    for a, b in zip(got, want):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_cuda_farm_backends_bitwise(cuda_device):
+    """The optimizer on the card over a 4-chip simulated farm: serial,
+    thread, process and cluster-loopback backends walk the bitwise
+    identical trajectory (the host chips see the same copied params)."""
+    import repro_torch as rt
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.hardware import (DeviceSpec, SimulatedAnalogChip,
+                                      simulated_chip_farm)
+    from repro_torch.hardware.backend import (ClusterStubBackend,
+                                              loopback_transport)
+
+    batches = _nist_batches(cuda_device, 8, 12, seed=11)
+
+    def run(backend):
+        with simulated_chip_farm(4, (49, 4, 4), backend=backend) as farm:
+            drv = rt.driver("probe_parallel_external", rt.DriverConfig(
+                dtheta=2e-2, eta=0.5, mode="central", seed=1), plant=farm,
+                device=cuda_device)
+            p = rt.mlp_init(2, (49, 4, 4), device=cuda_device)
+            s = drv.init(p)
+            cts = []
+            for b in batches:
+                p, s, aux = drv.step(p, s, b)
+                cts.append(aux["c_tilde"])
+        return torch.stack(cts).cpu(), [x.cpu() for x in tree_leaves(p)]
+
+    specs = [DeviceSpec(SimulatedAnalogChip, ((49, 4, 4),),
+                        dict(seed=i, sigma_a=0.15, sigma_theta=0.01,
+                             sigma_c=1e-4, py_busy_ms=0.0))
+             for i in range(4)]
+    ref_ct, ref_p = run("serial")
+    for backend in ("thread", "process",
+                    ClusterStubBackend(transport=loopback_transport(specs))):
+        ct, p = run(backend)
+        assert torch.equal(ct, ref_ct), backend
+        assert all(torch.equal(a, b) for a, b in zip(p, ref_p)), backend
+
+
+@pytest.mark.gpu
+def test_cuda_dyadic_pods_equal_farm(cuda_device):
+    """The dyadic LinearLaneChip law with the optimizer on the card: 4
+    pods on their batch blocks ≡ a 4-chip farm on the same shards."""
+    import repro_torch as rt
+    from repro_torch.core import mae
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.hardware import ChipFarm, LinearLaneChip
+
+    cfg = rt.DriverConfig(dtheta=0.5, eta=0.5, mode="central", seed=5)
+    x = torch.tensor([[0, 0], [0, 1], [1, 0], [1, 1]] * 2,
+                     dtype=torch.float32, device=cuda_device)
+    y = torch.tensor([[0], [1], [1], [0]] * 2, dtype=torch.float32,
+                     device=cuda_device)
+
+    def params():
+        return [{"w": torch.tensor([[0.5], [-0.25]], device=cuda_device),
+                 "b": torch.tensor([0.25], device=cuda_device)}]
+
+    pods = rt.driver("probe_parallel", cfg,
+                     lambda p, b: mae(b["y"], rt.linear_apply(p, b["x"])),
+                     mesh=rt.LocalMesh(pod=4), device=cuda_device)
+    with ChipFarm([LinearLaneChip() for _ in range(4)],
+                  shard_batch=True) as farm:
+        ext = rt.driver("probe_parallel_external", cfg, plant=farm,
+                        device=cuda_device)
+        p_m, p_f = params(), params()
+        s_m, s_f = pods.init(p_m), ext.init(p_f)
+        for _ in range(5):
+            p_m, s_m, a_m = pods.step(p_m, s_m, {"x": x, "y": y})
+            p_f, s_f, a_f = ext.step(p_f, s_f, {"x": x, "y": y})
+            assert torch.equal(a_m["c_tilde"], a_f["c_tilde"])
+            assert all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(p_m), tree_leaves(p_f)))
