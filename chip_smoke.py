@@ -131,6 +131,31 @@ Phases, each fatal on failure (nothing is caught):
    Printed: steps/s per backend, the share of it spent copying to the
    host, ``pipeline_stats()``, ``n_used`` and the fault counts.
 
+12. Serving.  12a: Qwen3-14B at full width and all 40 layers, bf16,
+   random weights from seed 0: ``python -m repro_torch.launch.serve``'s
+   batch generation (its defaults: batch 4, prompt 32, 32 new tokens,
+   through ``serving.greedy_generate``), then prefill and decode timed on
+   their own (the decode step also under ``torch.profiler``: device
+   time, device ops and busy share) beside its bound
+   (the weights, KV cache and logits a step moves at 3.35 TB/s), the
+   tokens per second and peak memory.  Gate: teacher-forced decode from a
+   16-token prefill of the prompts matches the full forward at every
+   later position within 8 bf16 ulps of max|logit|; two controls must
+   miss it (the cache's length one short, the last written cache position
+   zeroed).  12b: the online service (``repro_torch.serve``, 4 slots)
+   over Qwen3-14B at 4 layers with the fused central trimmer (Δθ = η =
+   1e-2, ``TrimConfig(..., probe_fn=make_transformer_probe_fn(cfg))``),
+   fed ``launch/serve.py``'s synthetic corpus (8 × 33 tokens) with
+   feedback: predict launches no kernel; the trimmer's first 3 steps are
+   C̃-gated against the plain route from the same state as in phase 5;
+   then 4 counted trim steps, 29 tensor-core pair launches and one window
+   update a step; then the dispatcher and trainer threads for 5 s
+   (served requests, publishes, latency p50/p99, trim steps/s, peak
+   memory).  12c: the online-serving bench's MLP service on the card: the
+   torn-swap hammer (1024 requests under a publish loop) gives 0, and
+   serve → trim → checkpoint (a temporary directory, removed) → restore
+   → trim equals the uninterrupted run bitwise (f32).
+
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
 eager torch ops.  Every phase prints its seconds.
@@ -836,6 +861,32 @@ def lm_driver(rt, cfg, dev, impl=None, seed=0, plant=None, **kw):
         plant=plant, probe_fn=rt.make_transformer_probe_fn(cfg), device=dev)
 
 
+def ct_gate_record(cts, plain_cts, other_cts, costs, what):
+    """Phase 5's C̃ gate on recorded values: ``cts`` within LM_CT_REL of
+    each step's cost of the plain route's, and both controls (C̃ = 0,
+    another seed's signs) missing that limit."""
+    tols = [LM_CT_REL * abs(c) for c in costs]
+
+    def worst(vals):
+        return max(abs(v - p) / t for v, p, t in zip(vals, plain_cts, tols))
+
+    rec = dict(c_tilde_first=cts, c_tilde_first_plain=plain_cts,
+               c_tilde_first_other_seed=other_cts, first_costs=costs,
+               c_tilde_tol=tols,
+               c_tilde_max_abs_err_vs_plain=max(
+                   abs(a - b) for a, b in zip(cts, plain_cts)),
+               c_tilde_err_in_tols=worst(cts),
+               control_zero_err_in_tols=worst([0.0] * len(cts)),
+               control_other_seed_err_in_tols=worst(other_cts))
+    if not rec["c_tilde_err_in_tols"] <= 1.0:
+        fail(f"{what}: C̃ {cts} differ from the plain route's {plain_cts} "
+             f"beyond {tols}")
+    for control in ("control_zero", "control_other_seed"):
+        if not rec[control + "_err_in_tols"] > 1.0:
+            fail(f"{what}: the C̃ gate passes its {control} ({rec})")
+    return rec
+
+
 def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
                  plant=None, read_plant=None, make=None):
     """The first ``steps`` steps of the kernel run, each probed again
@@ -864,27 +915,9 @@ def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
         params, state, aux = drv.step(params, state, batch)
         cts.append(aux["c_tilde"].item())
         costs.append(aux["cost"].item())
-    tols = [LM_CT_REL * abs(c) for c in costs]
-
-    def worst(vals):           # largest gap to the plain route, in tols
-        return max(abs(v - p) / t for v, p, t in zip(vals, plain_cts, tols))
-
-    rec = dict(c_tilde_first=cts, c_tilde_first_plain=plain_cts,
-               c_tilde_first_other_seed=other_cts, first_costs=costs,
-               c_tilde_tol=tols,
-               c_tilde_max_abs_err_vs_plain=max(
-                   abs(a - b) for a, b in zip(cts, plain_cts)),
-               c_tilde_err_in_tols=worst(cts),
-               control_zero_err_in_tols=worst([0.0] * len(cts)),
-               control_other_seed_err_in_tols=worst(other_cts))
     torch.cuda.synchronize()
-    if not rec["c_tilde_err_in_tols"] <= 1.0:
-        fail(f"transformer {kw}: first {steps} C̃ {cts} differ from "
-             f"the plain route's {plain_cts} beyond {tols}")
-    for control in ("control_zero", "control_other_seed"):
-        if not rec[control + "_err_in_tols"] > 1.0:
-            fail(f"transformer {kw}: the C̃ gate passes its {control} "
-                 f"({rec})")
+    rec = ct_gate_record(cts, plain_cts, other_cts, costs,
+                         f"transformer {kw}")
     return params, state, drv, rec
 
 
@@ -1972,6 +2005,321 @@ def chip_farm(torch, rt, tasks, pipeline, card, dev):
     return out
 
 
+# -- phase 12: serving ---------------------------------------------------------
+
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 32, 32      # launch/serve.py's defaults
+GATE_PREFILL = 16
+GATE_ULPS = 8              # decode gate: bf16 ulps of max|logit| (full fwd)
+PROFILE_DECODE_STEPS = 4
+SERVE_LAYERS = 4
+SERVE_SLOTS = 4
+SERVE_CT_STEPS = 3         # trim steps probed again through the plain route
+# of them gated: at eta = dtheta = 1e-2 the trimmer's cost grows ~3-5x a step
+# (12.8 -> 36.5 -> 192.7 on the H100), so by step 3 C~ is below the bf16
+# cost's resolution and neither control can miss; that step is printed only
+SERVE_CT_GATED = 2
+SERVE_MAIN_STEPS = 4
+SERVE_BACKGROUND_S = 5.0
+HAMMER_REQUESTS = 1024
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def decode_errors(torch, tt, params, cfg, toks, full, *, shift=0,
+                  zero_last=False):
+    """Teacher-forced decode from a GATE_PREFILL-token prefill: the largest
+    gap to the full forward's logits at every later position.  ``shift``
+    makes the cache's length that much short; ``zero_last`` zeroes the
+    last written cache position before each step (the two controls)."""
+    with torch.no_grad():
+        pf, cache = tt.model_prefill(params, cfg,
+                                     {"tokens": toks[:, :GATE_PREFILL]},
+                                     toks.shape[1])
+        err = (pf.float() - full[:, :GATE_PREFILL].float()).abs().max().item()
+        cache["length"] = cache["length"] - shift
+        for t in range(GATE_PREFILL, toks.shape[1]):
+            if zero_last:
+                last = int(cache["length"]) - 1
+                cache["k"][:, :, last] = 0
+                cache["v"][:, :, last] = 0
+            lg, cache = tt.model_decode(params, cfg, toks[:, t], cache)
+            err = max(err, (lg.float() - full[:, t].float()).abs().max()
+                      .item())
+    return err
+
+
+def decode_bound(torch, rt, params, cfg, batch, max_len):
+    """Bytes a decode step must move (each input read once, each output
+    written once): every layer's weights, the final norm and the untied
+    head, the batch's embedding rows, the KV cache, the logits; and its
+    bf16 operations (2 per weight and token)."""
+    leaves = rt.core.utils.tree_leaves(params["layers"])
+    esz = leaves[0].element_size()
+    layer_elems = sum(x.numel() for x in leaves)
+    head = params["embed"]["head"]["w"].numel()
+    kv = 2 * cfg.n_layers * batch * max_len * cfg.kv_heads * cfg.head_dim
+    nbytes = ((layer_elems + head + cfg.d_model + kv
+               + batch * cfg.d_model) * esz + batch * cfg.vocab * esz)
+    flops = 2.0 * (layer_elems + head) * batch
+    ms, by = bound(flops, nbytes, "bfloat16")
+    return dict(bytes=nbytes, weight_bytes=(layer_elems + head) * esz,
+                flops=flops, bound_ms=ms, bound_by=by)
+
+
+def serving_generation(torch, rt, kernels, card, dev):
+    """Phase 12a: Qwen3-14B at full width and all 40 layers, bf16: the
+    launcher's batch generation, timed prefill and decode steps, and the
+    decode gate against the full forward with its two controls.  Generation
+    is plain PyTorch (the reference's is plain jnp): fails if any kernel
+    launched in this phase."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving import greedy_generate
+
+    cfg = rt.get_config("qwen3-14b")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch_serve.main(["--arch", "qwen3-14b", "--device", dev.type])
+    launcher_s = time.perf_counter() - t0
+    if tuple(out.shape) != (GEN_BATCH, GEN_NEW) or \
+            not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        fail(f"serving: the launcher generated {tuple(out.shape)} tokens "
+             f"out of range")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = rt.model_init(cfg, 0, device=dev)
+    prompts = rt.core.rng.randint(rt.core.rng.prng_key(1),
+                                  (GEN_BATCH, GEN_PROMPT), 0, cfg.vocab,
+                                  device=dev).to(torch.int32)
+    greedy_generate(params, cfg, prompts, 2)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = greedy_generate(params, cfg, prompts, GEN_NEW).cpu()
+    gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.equal(gen, out):
+        fail("serving: greedy_generate disagrees with the launcher's run "
+             "of the same seed")
+    # prefill and the decode steps, each timed on its own
+    max_len = GEN_PROMPT + GEN_NEW
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tt.model_prefill(params, cfg, {"tokens": prompts},
+                                         max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks = logits[:, -1].argmax(-1)
+        t0 = time.perf_counter()
+        for _ in range(GEN_NEW - 1):
+            logits, cache = tt.model_decode(params, cfg, toks, cache)
+            toks = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (GEN_NEW - 1)
+        last = dict(cache, length=cache["length"] - 1)
+
+        def steps():                 # the last position, decoded again
+            for _ in range(PROFILE_DECODE_STEPS):
+                tt.model_decode(params, cfg, toks, last)
+
+        prof = device_profile(torch, steps, PROFILE_DECODE_STEPS)
+    del logits, cache, last
+    bnd = decode_bound(torch, rt, params, cfg, GEN_BATCH, max_len)
+    # the gate: teacher-forced decode against the full forward
+    seq = prompts
+    with torch.no_grad():
+        full = tt.model_forward(params, cfg, {"tokens": seq})
+    limit = GATE_ULPS * bf16_ulp(full.float().abs().max().item())
+    err = decode_errors(torch, tt, params, cfg, seq, full)
+    short = decode_errors(torch, tt, params, cfg, seq, full, shift=1)
+    zeroed = decode_errors(torch, tt, params, cfg, seq, full,
+                           zero_last=True)
+    rec = dict(
+        layers=cfg.n_layers, batch=GEN_BATCH, prompt=GEN_PROMPT,
+        new_tokens=GEN_NEW, launcher_s=launcher_s, generate_s=gen_s,
+        tok_per_s=GEN_BATCH * GEN_NEW / gen_s, prefill_ms=prefill_ms,
+        decode_ms_per_step=decode_ms, decode_profile=prof,
+        peak_mem_gb=peak_gb, decode_bound=bnd,
+        decode_bound_share=bnd["bound_ms"] / decode_ms,
+        gate_limit=limit, gate_err=err, gate_err_in_limits=err / limit,
+        control_length_short_in_limits=short / limit,
+        control_zeroed_last_in_limits=zeroed / limit,
+        max_abs_logit=full.float().abs().max().item(),
+        sample=gen[0, :16].tolist(), launches=kernels.launch_counts(),
+        card=card)
+    print(json.dumps({"serving_generation": rec}), flush=True)
+    if not err <= limit:
+        fail(f"serving: decode differs from the full forward by {err} > "
+             f"{limit} ({GATE_ULPS} bf16 ulps of max|logit|)")
+    for control in ("control_length_short", "control_zeroed_last"):
+        if not rec[control + "_in_limits"] > 1.0:
+            fail(f"serving: the decode gate passes its {control} ({rec})")
+    if any(rec["launches"].values()):
+        fail(f"serving: generation launched kernels {rec['launches']}")
+    del params, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serving_online(torch, rt, kernels, card, dev):
+    """Phase 12b: the online service over Qwen3-14B at SERVE_LAYERS
+    layers with the fused central trimmer: the trimmer's first steps
+    C̃-gated against the plain route, counted trim steps (29 tensor-core
+    pair launches and one window update a step; predict launches none),
+    then a background-thread run."""
+    from repro_torch.launch.serve import corpus_tokens
+    from repro_torch.serving import ServiceConfig, TrimConfig
+
+    cfg = rt.get_config("qwen3-14b").replace(n_layers=SERVE_LAYERS)
+    params = rt.model_init(cfg, 0, device=dev)
+
+    def predict_fn(p, batch):
+        return rt.model_forward(p, cfg, {"tokens": batch["tokens"]})[:, -1]
+
+    def loss_fn(p, batch):
+        return rt.model_loss(p, cfg, batch)
+
+    dcfg = rt.DriverConfig(mode="central", fused=True, dtheta=1e-2,
+                           eta=1e-2)
+    trim = TrimConfig(dcfg, loss_fn,
+                      probe_fn=rt.make_transformer_probe_fn(cfg))
+    svc_cfg = ServiceConfig(slots=SERVE_SLOTS, batch_window_s=0.002,
+                            replay_capacity=1024, trim_batch=SERVE_SLOTS,
+                            min_fill=2 * SERVE_SLOTS, publish_every=10)
+    corpus = corpus_tokens(0, 8, GEN_PROMPT + 1, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def feed(svc, rounds=1):
+        futs = [svc.submit({"tokens": corpus[j % 8, :GEN_PROMPT]},
+                           feedback={"labels": corpus[j % 8, 1:]})
+                for j in range(8 * rounds)]
+        return [f.result(timeout=120) for f in futs]
+
+    svc = rt.serve(svc_cfg, predict_fn, params, trim=trim, start=False)
+    svc.start(background_trim=False)
+    try:
+        kernels.reset_launch_counts()
+        feed(svc)
+        served = kernels.launch_counts()
+        if any(served.values()):
+            fail(f"serving: predict launched kernels {served}")
+        # the trimmer's own steps against the plain route, same state
+        ref = rt.driver("discrete", dcfg.replace(kernel_impl="ref"),
+                        loss_fn, probe_fn=rt.make_transformer_probe_fn(cfg),
+                        device=dev)
+        other = rt.driver("discrete", dcfg.replace(seed=1), loss_fn,
+                          probe_fn=rt.make_transformer_probe_fn(cfg),
+                          device=dev)
+        cts, plain, others, costs = [], [], [], []
+        for _ in range(SERVE_CT_STEPS):
+            tr = svc.trimmer
+            b = svc.replay.sample(svc_cfg.trim_batch, tr.global_step,
+                                  seed=svc_cfg.seed)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            plain.append(ref.step(tr.params, tr.state, b)[2]["c_tilde"]
+                         .item())
+            others.append(other.step(tr.params, tr.state, b)[2]["c_tilde"]
+                          .item())
+            svc.trim(1)
+            st = tr.stats()
+            cts.append(st["aux_c_tilde"])
+            costs.append(st["aux_cost"])
+        n = SERVE_CT_GATED
+        gate = ct_gate_record(cts[:n], plain[:n], others[:n], costs[:n],
+                              "serving trimmer")
+        tols = [LM_CT_REL * abs(c) for c in costs]
+        for control, vals in (("zero", [0.0] * len(cts)),
+                              ("other_seed", others)):
+            per_step = [abs(v - p) / t for v, p, t in zip(vals, plain, tols)]
+            gate[f"control_{control}_err_in_tols_per_step"] = per_step
+            if not all(m > 1.0 for m in per_step[:n]):
+                fail(f"serving trimmer: the C̃ gate passes its control_"
+                     f"{control} at a gated step ({per_step[:n]})")
+        gate.update(
+            c_tilde_gated_steps=n,
+            c_tilde_ungated=dict(
+                c_tilde=cts[n:], plain=plain[n:], other_seed=others[n:],
+                costs=costs[n:], err_in_tols=[
+                    abs(v - p) / t for v, p, t in
+                    zip(cts[n:], plain[n:], tols[n:])]))
+        del ref, other, b
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if svc.trim(SERVE_MAIN_STEPS) != SERVE_MAIN_STEPS:
+            fail("serving: the trimmer skipped steps")
+        torch.cuda.synchronize()
+        trim_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        expected = lm_expected(SERVE_LAYERS, "central", SERVE_MAIN_STEPS)
+        if counts != expected:
+            fail(f"serving: trim launches {counts} != expected {expected}")
+        by_route = check_routes(kernels, counts, "tc", "serving trimmer")
+        sync_stats = svc.stats()
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    # the threads: dispatcher and trainer on one card
+    with rt.serve(svc_cfg, predict_fn, params, trim=trim) as bg:
+        t0 = time.perf_counter()
+        rounds = 0
+        while time.perf_counter() - t0 < SERVE_BACKGROUND_S:
+            feed(bg)
+            rounds += 1
+        bg.fence()
+        wall = time.perf_counter() - t0
+        stats = bg.stats()
+    if stats["trim_global_step"] < 1 or stats["served"] != 8 * rounds:
+        fail(f"serving: background run served {stats['served']} of "
+             f"{8 * rounds}, trimmed {stats['trim_global_step']} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = dict(
+        layers=SERVE_LAYERS, slots=SERVE_SLOTS, **gate,
+        trim_steps_per_s_sync=SERVE_MAIN_STEPS / trim_s,
+        launches=counts, launches_by_kernel=by_route,
+        last_cost_sync=sync_stats.get("trim_aux_cost"),
+        background_s=wall, served=stats["served"],
+        publishes=stats["version"], trim_steps=stats["trim_global_step"],
+        trim_steps_per_s=stats["trim_global_step"] / wall,
+        requests_per_s=stats["served"] / wall,
+        latency_p50_ms=stats["latency_p50_ms"],
+        latency_p99_ms=stats["latency_p99_ms"], peak_mem_gb=peak_gb,
+        card=card)
+    print(json.dumps({"serving_online": rec}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def serving_mlp(torch, card, dev):
+    """Phase 12c: the online-serving bench's MLP service on the card: the
+    torn-swap hammer and serve → trim → checkpoint → restore → trim."""
+    import tempfile
+
+    from repro_torch.benchmarks import online_serving as bench
+
+    t0 = time.perf_counter()
+    torn = bench.torn_swap_hammer(HAMMER_REQUESTS, dev)
+    hammer_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        exact = bench.resume_bitexact(0, tmp, dev)
+    rec = dict(torn_swaps=torn, hammer_requests=HAMMER_REQUESTS,
+               hammer_s=hammer_s, resume_bitexact=exact, card=card)
+    print(json.dumps({"serving_mlp": rec}), flush=True)
+    if torn:
+        fail(f"serving: {torn} torn swaps under the publish hammer")
+    if exact != 1.0:
+        fail("serving: serve→trim→resume is not bitwise the uninterrupted "
+             "run")
+    return rec
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -2094,8 +2442,24 @@ def main(argv=None) -> int:
           flush=True)
     done(11, t0)
 
+    # -- phase 12: serving -------------------------------------------------
+    t0 = time.perf_counter()
+    serving = {"generation": serving_generation(torch, rt, kernels, card,
+                                                dev)}
+    t_a = time.perf_counter()
+    serving["online"], serving_counts = serving_online(torch, rt, kernels,
+                                                       card, dev)
+    t_b = time.perf_counter()
+    serving["mlp"] = serving_mlp(torch, card, dev)
+    serving["seconds"] = {"12a": t_a - t0, "12b": t_b - t_a,
+                          "12c": time.perf_counter() - t_b}
+    print(f"phase 12: 12a {serving['seconds']['12a']:.1f} s, 12b "
+          f"{serving['seconds']['12b']:.1f} s, 12c "
+          f"{serving['seconds']['12c']:.1f} s", flush=True)
+    done(12, t0)
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
-                   pp_mlp_counts, pp_lm_counts):
+                   pp_mlp_counts, pp_lm_counts, serving_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -2105,7 +2469,7 @@ def main(argv=None) -> int:
     by_kernel = {name: {"tc": 0, "simt": 0}
                  for name in kernels.MATMUL_WRAPPERS}
     for rec in [*results.values(), *lm_results.values(), deep, imperfect,
-                pp["transformer"]]:
+                pp["transformer"], serving["online"]]:
         for name, routes in rec.get("launches_by_kernel", {}).items():
             for r, v in routes.items():
                 by_kernel[name][r] += v
@@ -2144,7 +2508,8 @@ def main(argv=None) -> int:
             shapes=recs, train=results, profile=profiles,
             transformer=lm_results, full_depth=deep,
             imperfect_device=imperfect, resume=resume, paper_model=paper,
-            paper_cnns=cnns, probe_parallel=pp, phase_s=phase_s,
+            paper_cnns=cnns, probe_parallel=pp, serving=serving,
+            phase_s=phase_s,
             ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,15 @@ the same k probes out to k external chips behind a host boundary::
                     rt.DriverConfig(dtheta=1e-2, eta=0.1, mode="central"),
                     plant=farm)
 
+Serving: ``greedy_generate`` prefills a KV cache and decodes from it
+(``repro_torch.serving``), and ``serve`` stands up the online service,
+which answers requests from a fixed-slot dispatcher while a background
+MGD trimmer re-trims the served weights from request feedback::
+
+    svc = rt.serve(rt.ServiceConfig(slots=8), predict_fn, params,
+                   trim=rt.TrimConfig(rt.DriverConfig(...), loss_fn))
+    result = svc.serve({"x": x}, feedback={"y": y})
+
 Imperfect devices (``hardware``: noisy, quantized and drifting plants
 with the reference's counter-keyed threefry noise), Algorithm 2
 (``driver("analog", ...)``) and checkpoint/resume with scheduled
@@ -71,14 +80,18 @@ from .models import (ArchConfig, cifar_cnn_apply, cifar_cnn_init, cnn_apply,
                      cnn_init, fashion_cnn_apply, fashion_cnn_init,
                      linear_apply, make_mlp_probe_fn,
                      make_transformer_probe_fn, mlp_apply,
-                     mlp_apply_perturbed, mlp_init, model_forward,
-                     model_forward_perturbed, model_init, model_loss,
+                     mlp_apply_perturbed, mlp_init, init_cache,
+                     model_decode, model_forward, model_forward_perturbed,
+                     model_init, model_loss, model_prefill,
                      model_probe_costs, supports_fused_probe)
 from .optim import sgd_init, sgd_step
 from .training import (TrainLoopConfig, TrainResult, classification_accuracy,
                        train_backprop, train_mgd)
 
 train = train_mgd
+
+# the serving tier resolves lazily: importing repro_torch does not load it
+_LAZY = {"serve", "OnlineService", "ServiceConfig", "TrimConfig"}
 
 __all__ = [
     "ALGORITHMS", "DriverConfig", "MGDDriver", "ProbeParallelState",
@@ -91,9 +104,17 @@ __all__ = [
     "fashion_cnn_apply", "cifar_cnn_init", "cifar_cnn_apply",
     "ArchConfig", "get_config", "get_smoke_config", "model_init",
     "model_forward", "model_loss", "model_forward_perturbed",
+    "init_cache", "model_prefill", "model_decode",
     "model_probe_costs", "make_transformer_probe_fn", "supports_fused_probe",
     "tasks", "dataset_sampler", "generator_sampler", "lm_sampler",
     "sgd_init", "sgd_step",
     "TrainLoopConfig", "TrainResult", "train", "train_mgd", "train_backprop",
     "classification_accuracy",
-]
+] + sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from repro_torch.serving import online
+        return getattr(online, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

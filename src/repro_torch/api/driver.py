@@ -21,6 +21,7 @@ chips: ``plant=ChipFarm(...)``).  The probe-parallel drivers carry a
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -190,6 +191,20 @@ def replace_step(state, step):
     if hasattr(state, "t"):
         return state._replace(t=int(step))
     raise TypeError(f"{type(state).__name__} has no step/t counter")
+
+
+_WARNED: set = set()
+
+
+def warn_deprecated(name: str, replacement: str, *,
+                    category=DeprecationWarning) -> None:
+    """Single-fire deprecation warning per legacy spelling."""
+    if name in _WARNED:
+        return
+    _WARNED.add(name)
+    warnings.warn(
+        f"{name} is deprecated; use the consolidated surface instead: "
+        f"{replacement}", category, stacklevel=3)
 
 
 _REGISTRY: Dict[str, Callable[..., MGDDriver]] = {}

@@ -8,6 +8,10 @@ Entry points run on the CUDA card unless the caller passes
 """
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import time
 from typing import Callable
 
 from repro_torch.api import driver as build_driver, make_epoch
@@ -64,3 +68,42 @@ def time_to_solve_xor(cfg, seed: int, max_steps=60000, chunk=2000,
 def median(vals):
     vals = sorted(vals)
     return vals[len(vals) // 2] if vals else None
+
+
+def bench_cli(bench: str, run: Callable, argv=None, *, doc: str,
+              smoke_help: str) -> int:
+    """The twins' command line: ``[--out DIR] [--smoke] [--device cpu]
+    [--seed N]``.  Runs ``run(seed, smoke, device)``, prints the rows as
+    CSV and writes ``DIR/<bench>.json`` (``{"rows", "seconds", "seed"}``
+    as the reference's runner does, plus the device and card).  Gate it,
+    unedited, with ``python -m benchmarks.check_regression --fresh DIR
+    --baseline artifacts/bench``."""
+    import torch
+
+    from .table2_datasets import card_line
+
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    ap.add_argument("--out", default="bench_torch",
+                    help=f"directory for {bench}.json")
+    ap.add_argument("--smoke", action="store_true", help=smoke_help)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line() if args.device == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    rows = run(args.seed, args.smoke, args.device)
+    seconds = time.perf_counter() - t0
+    print("bench,name,value,detail")
+    for r in rows:
+        detail = str(r["detail"]).replace(",", ";")
+        print(f"{r['bench']},{r['name']},{r['value']},{detail}")
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"{bench}.json")
+    with open(path, "w") as f:
+        json.dump({"rows": rows, "seconds": seconds, "seed": args.seed,
+                   "device": args.device, "card": card,
+                   "smoke": args.smoke}, f, indent=1)
+    print(f"# {bench} done in {seconds:.1f}s ({card}) → {path}")
+    return 0

@@ -33,9 +33,6 @@ benchmarks.check_regression --fresh DIR --baseline artifacts/bench``.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import tempfile
 import time
 
@@ -53,7 +50,7 @@ from repro_torch.hardware import (ChipFarm, FaultPolicy, FaultSpec,
 from repro_torch.models.simple import mlp_init
 from repro_torch.training.train_loop import TrainLoopConfig, train_mgd
 
-from .table2_datasets import card_line
+from .common import bench_cli
 
 K = 4
 SIZES = (49, 4, 4)
@@ -274,33 +271,9 @@ def run(seed: int = 0, smoke: bool = False, device=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default="bench_torch",
-                    help="directory for fault_tolerance.json")
-    ap.add_argument("--smoke", action="store_true",
-                    help=f"{SMOKE_STEPS} steps a farm (the committed "
-                         f"baseline's budget) instead of {STEPS}")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    if args.device == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line() if args.device == "cuda" else "cpu"
-    t0 = time.perf_counter()
-    rows = run(args.seed, args.smoke, args.device)
-    seconds = time.perf_counter() - t0
-    print("bench,name,value,detail")
-    for r in rows:
-        detail = str(r["detail"]).replace(",", ";")
-        print(f"{r['bench']},{r['name']},{r['value']},{detail}")
-    os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "fault_tolerance.json")
-    with open(path, "w") as f:
-        json.dump({"rows": rows, "seconds": seconds, "seed": args.seed,
-                   "device": args.device, "card": card,
-                   "smoke": args.smoke}, f, indent=1)
-    print(f"# fault_tolerance done in {seconds:.1f}s ({card}) → {path}")
-    return 0
+    return bench_cli("fault_tolerance", run, argv, doc=__doc__,
+                     smoke_help=f"{SMOKE_STEPS} steps a farm (the committed "
+                                f"baseline's budget) instead of {STEPS}")
 
 
 if __name__ == "__main__":

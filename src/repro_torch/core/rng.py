@@ -37,6 +37,10 @@ one draw on the host, in Python ints and numpy f32, for the scalar reads
 the plants key per step and tag: a dozen host operations where the
 tensor path would dispatch ~190 ops for one element.
 
+``gumbel`` and ``categorical`` are jax 0.9.0's default ("low") mode,
+``−log(−log(uniform(key, lo=tiny, hi=1)))`` and ``argmax(logits +
+gumbel)``: the serving path's temperature sampling.
+
 Bits and uniforms are bitwise equal to jax's.  ``normal`` is
 ``√2·erfinv(u)`` with XLA's single-precision ``erf_inv`` polynomial
 (Giles) ported op for op; it differs from jax's CPU draws only where
@@ -57,6 +61,8 @@ from .utils import f32
 MASK = 0xFFFFFFFF
 CHUNK = 1 << 24            # elements per pass of the element hash
 NORMAL_ULPS = 4            # stated bound of normal() against jax's draws
+GUMBEL_ULPS = 2            # gumbel() against jax's, in ulps of max(|g|, 1)
+_TINY = float(np.finfo(np.float32).tiny)
 
 Key = Tuple[int, int]
 
@@ -265,6 +271,23 @@ def normal(key: Key, shape=(), device=None) -> torch.Tensor:
     device = resolve_device(device)
     return _fill(shape, torch.float32, device,
                  lambda a, b: normal_slice(key, a, b, device))
+
+
+def gumbel(key: Key, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default mode:
+    ``−log(−log(u))`` of ``uniform(key, shape, tiny, 1)`` (the uniforms
+    bitwise; torch's logs round apart from XLA's, within ``GUMBEL_ULPS``
+    ulps of max(|g|, 1))."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0, device)))
+
+
+def categorical(key: Key, logits: torch.Tensor, axis: int = -1
+                ) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)``: the Gumbel-max draw
+    ``argmax(logits + gumbel(key, logits.shape))`` (int64), made on the
+    logits' device."""
+    g = gumbel(key, tuple(logits.shape), logits.device).to(logits.dtype)
+    return torch.argmax(g + logits, dim=axis)
 
 
 # -- one draw on the host ----------------------------------------------------

@@ -13,8 +13,8 @@ Two exact implementations, equal bit for bit:
 * ``balanced`` — pairs Q block i with Q block n−1−i so every pair does a
   constant n+1 KV-block visits.
 
-Single-token decode against a cache (``decode_attention``) belongs to the
-serving port (ROADMAP A13).
+``decode_attention`` is single-token attention against a KV cache, the
+serving path's (``models.transformer.model_decode``).
 """
 from __future__ import annotations
 
@@ -143,3 +143,28 @@ def _balanced(qg, k, v, blk, scale):
         for iq, carry in halves.items():
             outs[iq] = _finish(carry, qg.dtype)
     return torch.cat(outs, dim=1)
+
+
+def decode_attention(
+    q1: torch.Tensor,        # [B, 1, H, D] — the new token's query
+    k_cache: torch.Tensor,   # [B, S_max, KVH, D]
+    v_cache: torch.Tensor,   # [B, S_max, KVH, D]
+    length,                  # valid cache length (new token included)
+) -> torch.Tensor:
+    """Single-token attention against the cache.  Returns [B, 1, H, Dv].
+
+    Grouped layout (``bhgd,bshd->bhgs``): the KV heads are never repeated.
+    Scores and probabilities are f32; positions ≥ ``length`` (a host int
+    or a 0-d tensor) are masked with ``NEG_INF``."""
+    b, _, h, d = q1.shape
+    kvh = k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    g = h // kvh
+    scale = f32(1.0 / np.sqrt(d))
+    qg = q1.reshape(b, kvh, g, d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
+    pos = torch.arange(k_cache.shape[1], device=k_cache.device)
+    s = torch.where(pos[None, None, None, :] < length, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, h, dv).to(q1.dtype)

@@ -8,13 +8,22 @@ RMSNorm, RoPE or M-RoPE):
     model_forward(params, cfg, batch)     → logits [B, S, V]
     model_loss(params, cfg, batch)        → scalar xent (MGD's loss_fn)
     make_transformer_probe_fn(cfg)        → probe_fn for the fused path
+    model_prefill(params, cfg, batch, L)  → (logits, KV cache of length L)
+    model_decode(params, cfg, tokens, c)  → (next logits [B, V], cache)
 
 Layers are stacked on a leading L dim, as in the reference, so leaf ids
 and sign indices match it; the reference's ``lax.scan`` over layers is a
 Python loop here, with a host-int layer index.  Sharding annotations are
 dropped (one card).  Other families (ssm, hybrid, MoE, MLA), stub-frontend
-inputs (``embeds``, codebooks) raise and name ROADMAP A14; the serving
-entry points (cache, prefill, decode) raise and name A13.
+inputs (``embeds``, codebooks) raise and name ROADMAP A14, in the serving
+entry points too.
+
+The KV cache keeps the reference's layout, ``{"k", "v": [L, B, S_max,
+KVH, dh], "length": int32}``.  Where the reference donates the cache into
+a jitted decode, ``model_decode`` writes the new token's K and V into the
+preallocated cache in place, at ``length − 1``.  ``length`` is a 0-d int32
+tensor kept on the host, so a decode step reads it without waiting for
+the card.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ from repro_torch.core.perturbations import leaf_seed
 from repro_torch.core.utils import (leaf_id_tree, tree_flatten, tree_map,
                                     tree_unflatten)
 from repro_torch.device import resolve_device
-from .attention import chunked_causal_attention
+from .attention import chunked_causal_attention, decode_attention
 from .config import ArchConfig
 from .layers import (dense, dense_init, embed, embedding_init, glu_mlp,
                      glu_mlp_init, pdense, pembed, pleaf, prmsnorm, rmsnorm,
@@ -116,6 +125,18 @@ def attn_apply(p, x, positions, cfg: ArchConfig):
     return dense(p["wo"], _attend(cfg, q, k, v)), (k, v)
 
 
+def attn_decode_step(p, x1, positions, kcache, vcache, length: int,
+                     cfg: ArchConfig):
+    """x1: [B, 1, d].  Caches [B, S_max, KVH, dh]; the new entry is
+    written in place at ``length − 1``.  Returns (y, kcache, vcache)."""
+    b = x1.shape[0]
+    q, k, v = _qkv(p, x1, positions, cfg)
+    kcache[:, length - 1] = k[:, 0].to(kcache.dtype)
+    vcache[:, length - 1] = v[:, 0].to(vcache.dtype)
+    y = decode_attention(q, kcache, vcache, length)
+    return dense(p["wo"], y.reshape(b, 1, -1)), kcache, vcache
+
+
 # ---------------------------------------------------------------------------
 # One decoder layer
 # ---------------------------------------------------------------------------
@@ -136,6 +157,18 @@ def block_apply(p, x, positions, cfg: ArchConfig):
     x = x + att
     x = x + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, cache
+
+
+def block_decode(p, x1, positions, layer_cache, length: int,
+                 cfg: ArchConfig):
+    """One layer of one decode step.  Returns (x1', (kcache, vcache))."""
+    kc, vc = layer_cache
+    att, kc, vc = attn_decode_step(
+        p["attn"], rmsnorm(p["ln1"], x1, cfg.norm_eps), positions, kc, vc,
+        length, cfg)
+    x1 = x1 + att
+    x1 = x1 + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x1, cfg.norm_eps))
+    return x1, (kc, vc)
 
 
 # ---------------------------------------------------------------------------
@@ -220,16 +253,26 @@ def _layer_params(layers, layer: int):
     return tree_map(lambda a: a[layer], layers)
 
 
-def model_forward(params, cfg: ArchConfig, batch):
-    """Full-sequence forward → logits [B, S, V]."""
+def model_forward(params, cfg: ArchConfig, batch, *, return_state=False):
+    """Full-sequence forward → logits [B, S, V].  With ``return_state``
+    also the per-layer (k, v), each stacked [L, B, S, KVH, dh] (the
+    prefill path)."""
     x = _embed_tokens(params["embed"], cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, batch, s, b, x.device)
+    kvs = []
     for layer in range(cfg.n_layers):
-        x, _ = block_apply(_layer_params(params["layers"], layer), x,
-                           positions, cfg)
+        x, kv = block_apply(_layer_params(params["layers"], layer), x,
+                            positions, cfg)
+        if return_state:
+            kvs.append(kv)
+        del kv
     x = rmsnorm(params["embed"]["ln_f"], x, cfg.norm_eps)
-    return _logits(params["embed"], cfg, x)
+    logits = _logits(params["embed"], cfg, x)
+    if return_state:
+        return logits, (torch.stack([k for k, _ in kvs]),
+                        torch.stack([v for _, v in kvs]))
+    return logits
 
 
 def _loss_from_logits(logits, labels):
@@ -355,13 +398,60 @@ def make_transformer_probe_fn(cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
-# Serving (not ported yet)
+# Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
 
-def _serving_not_ported(*_, **__):
-    raise NotImplementedError("KV caches, prefill and decode are not ported "
-                              "to repro_torch yet (ROADMAP A13, serving)")
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
+               device=None):
+    """An empty KV cache on ``device`` (the card unless ``device="cpu"``):
+    ``{"k", "v": [L, B, max_len, KVH, dh]`` zeros in the model's dtype,
+    ``"length"``: a 0-d int32 host tensor}."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "length": torch.zeros((), dtype=torch.int32)}
 
 
-init_cache = model_prefill = model_decode = _serving_not_ported
+def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
+    """Run the prompt; returns (full-seq logits, ready-to-decode cache)
+    on the tokens' device."""
+    logits, (k, v) = model_forward(params, cfg, batch, return_state=True)
+    b, s = batch["tokens"].shape[0], batch["tokens"].shape[-1]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    cache = init_cache(cfg, b, max_len, device=logits.device)
+    cache["k"][:, :, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :, :s] = v.to(cache["v"].dtype)
+    cache["length"] = torch.tensor(s, dtype=torch.int32)
+    return logits, cache
+
+
+def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
+    """One decode step.  tokens: [B] int.  Returns (logits [B, V], cache):
+    the cache's K and V are written in place (the caller's dict keeps
+    its old ``length``; use the returned one)."""
+    if embeds is not None:
+        raise NotImplementedError("stub-frontend embeds inputs are not "
+                                  "ported yet (ROADMAP A14)")
+    _check_family(cfg)
+    x1 = embed(params["embed"]["tok"], tokens)[:, None, :]
+    b = x1.shape[0]
+    length = int(cache["length"]) + 1
+    if length > cache["k"].shape[2]:
+        raise ValueError(f"KV cache full: decoding position {length - 1} "
+                         f"of a cache of {cache['k'].shape[2]}")
+    pos = torch.full((b, 1), length - 1, dtype=torch.int32,
+                     device=x1.device)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(b, 1, 3)
+    for layer in range(cfg.n_layers):
+        x1, _ = block_decode(_layer_params(params["layers"], layer), x1, pos,
+                             (cache["k"][layer], cache["v"][layer]), length,
+                             cfg)
+    x1 = rmsnorm(params["embed"]["ln_f"], x1, cfg.norm_eps)
+    logits = _logits(params["embed"], cfg, x1)[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "length": torch.tensor(length, dtype=torch.int32)}

@@ -41,7 +41,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.api.driver import MGDDriver, driver as build_driver, \
-    replace_step, state_step
+    replace_step, state_step, warn_deprecated
 from repro_torch.core.mgd import MGDState
 from repro_torch.core.utils import f32, tree_flatten, tree_unflatten
 from repro_torch.optim import sgd_init, sgd_step
@@ -79,6 +79,9 @@ class TrainLoopConfig:
 
     def replace(self, **kw) -> "TrainLoopConfig":
         return dataclasses.replace(self, **kw)
+
+
+_LOOP_FIELDS = tuple(f.name for f in dataclasses.fields(TrainLoopConfig))
 
 
 def resolve_driver(loss_fn, cfg, *, probe_fn=None, plant=None, mesh=None,
@@ -171,6 +174,7 @@ def train_mgd(
     *,
     loop: Optional[TrainLoopConfig] = None,
     device=None,
+    **flat,                       # legacy flat spelling of TrainLoopConfig
 ) -> TrainResult:
     """Run an MGD driver for ``num_steps`` iterations.
 
@@ -178,8 +182,25 @@ def train_mgd(
     ``device="cpu"``); a pre-built driver carries its own.  With
     ``loop.checkpoint_dir`` the run resumes from the newest checkpoint
     there (unless ``loop.resume`` is False) and saves every
-    ``loop.checkpoint_every`` steps.
+    ``loop.checkpoint_every`` steps.  The reference's flat keywords
+    (``chunk=``, ``log=``, ...) build the same ``TrainLoopConfig`` and
+    fire one ``PendingDeprecationWarning``.
     """
+    if flat:
+        unknown = sorted(set(flat) - set(_LOOP_FIELDS))
+        if unknown:
+            raise TypeError(f"train_mgd got unexpected keyword arguments "
+                            f"{unknown}; loop-level knobs are the fields "
+                            f"of TrainLoopConfig: {sorted(_LOOP_FIELDS)}")
+        if loop is not None:
+            raise ValueError(
+                f"got loop=TrainLoopConfig(...) AND the flat keywords "
+                f"{sorted(flat)} — set every loop knob in one place")
+        warn_deprecated(
+            "train_mgd's flat loop keywords",
+            "train_mgd(..., loop=TrainLoopConfig(...))",
+            category=PendingDeprecationWarning)
+        loop = TrainLoopConfig(**flat)
     loop = loop or TrainLoopConfig()
     if loop.recal_every < 0:
         raise ValueError(

@@ -239,3 +239,94 @@ def test_import_without_nvcc_or_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# --- the launchers and the examples, at smoke size on the CPU ----------------
+
+
+def test_launch_serve_generates_on_cpu(capsys):
+    from repro_torch.launch import serve as lserve
+
+    out = lserve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+                       "--prompt-len", "8", "--max-new", "6"])
+    assert tuple(out.shape) == (4, 6) and out.dtype == torch.int32
+    again = lserve.main(["--arch", "qwen3-14b", "--smoke", "--device",
+                         "cpu", "--prompt-len", "8", "--max-new", "6"])
+    assert torch.equal(out, again)                 # seeded, deterministic
+    assert "tok/s, cpu" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="A14"):
+        lserve.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu"])
+
+
+def test_launch_serve_online_trim_on_cpu():
+    from repro_torch.launch import serve as lserve
+
+    stats, c0, c1 = lserve.main(
+        ["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+         "--online-trim", "--batch", "2", "--prompt-len", "8",
+         "--requests", "8", "--trim-steps", "6", "--drift", "0.002"])
+    assert stats["served"] == 8 and stats["trim_global_step"] >= 6
+    assert stats["version"] >= 1 and np.isfinite([c0, c1]).all()
+
+
+def test_launch_serve_corpus_is_the_references():
+    from repro_torch.launch.serve import corpus_tokens
+
+    jax = pytest.importorskip("jax")
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (8, 9), 0,
+                                         128))
+    got = corpus_tokens(0, 8, 9, 128)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_launch_train_mgd_backprop_and_resume(tmp_path):
+    from repro_torch.launch import train as ltrain
+
+    base = ["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--seq", "8", "--chunk", "2"]
+    ck = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
+    straight = ltrain.main(base + ["--steps", "4"])
+    assert straight.steps_done == 4
+    ltrain.main(base + ck + ["--steps", "2"])
+    resumed = ltrain.main(base + ck + ["--steps", "4"])
+    for a, b in zip(rt.core.utils.tree_leaves(resumed.params),
+                    rt.core.utils.tree_leaves(straight.params)):
+        assert torch.equal(a, b)
+    bp = ltrain.main(base + ["--algo", "backprop", "--steps", "4"])
+    assert np.isfinite(bp.history[-1][1]["cost"])
+
+
+def test_launch_modules_run_as_scripts(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-14b", "--smoke", "--device", "cpu", "--steps", "2",
+         "--chunk", "1", "--batch", "2", "--seq", "8"],
+        env=env, capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "[train] done" in out.stdout
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart", []),
+    ("serve_lm", ["--requests", "10", "--trim"]),
+    ("train_lm_mgd", ["--steps", "2", "--seq", "16", "--probes", "2"]),
+    ("chip_in_the_loop", ["--steps", "11", "--eval-every", "10",
+                          "--chips", "3", "--fault-rate", "0.1"]),
+    ("chip_in_the_loop", ["--steps", "11", "--eval-every", "10",
+                          "--drift", "0.01"]),
+], ids=["quickstart", "serve_lm", "train_lm_mgd", "chip_farm",
+        "chip_drift"])
+def test_examples_run_on_cpu(name, argv, tmp_path, capsys, monkeypatch):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    if name == "quickstart":   # one short epoch instead of 10 x 2000 steps
+        monkeypatch.setattr(mod, "EPOCHS", 1)
+        monkeypatch.setattr(mod, "EPOCH_STEPS", 50)
+    if name == "train_lm_mgd":
+        argv = argv + ["--ckpt-dir", str(tmp_path / "ck")]
+    result = mod.main(argv + ["--device", "cpu"])
+    assert result is not None
+    assert capsys.readouterr().out.strip()

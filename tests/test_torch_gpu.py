@@ -802,3 +802,78 @@ def test_cuda_dyadic_pods_equal_farm(cuda_device):
             assert torch.equal(a_m["c_tilde"], a_f["c_tilde"])
             assert all(torch.equal(a, b) for a, b in
                        zip(tree_leaves(p_m), tree_leaves(p_f)))
+
+
+# --- serving on the card -------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_decode_card_equals_cpu(cuda_device):
+    """Prefill + teacher-forced decode and greedy generation of the smoke
+    config (f32) on the card against the CPU: logits within 2e-5 (the
+    transformer's stated port tolerance; cuBLAS and the CPU's matmul sum
+    in other orders), the same tokens."""
+    import repro_torch as rt
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving import greedy_generate
+
+    cfg = rt.get_smoke_config("qwen3-14b")
+    cpu = rt.model_init(cfg, 0, device="cpu")
+    card = to_torch(to_numpy(cpu), device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (3, 24),
+                         generator=torch.Generator().manual_seed(0))
+    outs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda_device)):
+        t = toks.to(dev)
+        pf, cache = tt.model_prefill(params, cfg, {"tokens": t[:, :16]}, 24)
+        logits = [pf[:, -1]]
+        for i in range(16, 24):
+            lg, cache = tt.model_decode(params, cfg, t[:, i], cache)
+            logits.append(lg)
+        gen = greedy_generate(params, cfg, t[:, :8], 8, temperature=1.0,
+                              seed=2)
+        outs.append((torch.stack(logits).cpu(), gen.cpu()))
+    assert (outs[0][0] - outs[1][0]).abs().max().item() <= 2e-5
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.gpu
+def test_two_thread_service_on_card(cuda_device):
+    """The dispatcher and trainer threads on one card: traffic is served
+    while the MLP trimmer steps and publishes; no torn swap under a
+    publish hammer."""
+    import time
+
+    import numpy as np
+
+    import repro_torch as rt
+    from repro_torch.benchmarks.online_serving import torn_swap_hammer
+    from repro_torch.core import rng
+    from repro_torch.data import tasks
+
+    params = rt.mlp_init(0, (49, 4, 4), device=cuda_device)
+    trim = rt.TrimConfig(rt.DriverConfig(dtheta=2e-2, eta=0.4,
+                                         mode="central"),
+                         lambda p, b: rt.mse(rt.mlp_apply(p, b["x"]),
+                                             b["y"]))
+    cfg = rt.ServiceConfig(slots=8, min_fill=16, trim_batch=8,
+                           publish_every=5)
+    x, y = tasks.nist7x7_batch(rng.prng_key(3), 64, device="cpu")
+    x, y = x.numpy(), y.numpy()
+    with rt.serve(cfg, lambda p, b: rt.mlp_apply(p, b["x"]), params,
+                  trim=trim) as svc:
+        futs = [svc.submit({"x": x[i]}, feedback={"y": y[i]})
+                for i in range(64)]
+        outs = [f.result(timeout=60) for f in futs]
+        deadline = time.monotonic() + 60
+        while svc.stats()["trim_global_step"] < 20 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        svc.fence()
+        stats = svc.stats()
+    assert stats["served"] == 64 and stats["trim_global_step"] >= 20
+    assert stats["version"] >= 4
+    assert all(np.isfinite(r.output).all() and r.output.shape == (4,)
+               for r in outs)
+    assert torn_swap_hammer(512, cuda_device) == 0

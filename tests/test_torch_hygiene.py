@@ -1,8 +1,8 @@
-"""Source-hygiene guards for the port's host boundary.
+"""Source-hygiene guards for the port's host boundary and serving tier.
 
 Twins of ``tests/test_hygiene.py``, whose guards (and mgdlint's rules)
 are scoped to ``src/repro/``: the same failure classes live in
-``src/repro_torch/hardware/`` now.  A gather with no timeout turns a hung
+``src/repro_torch/hardware/`` and ``src/repro_torch/serving/`` now.  A gather with no timeout turns a hung
 instrument into a training step that never returns; a backend without a
 teardown leaks its workers; a chip that touches a tensor breaks in the
 process backend's forked workers.
@@ -14,6 +14,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARDWARE_DIR = REPO / "src" / "repro_torch" / "hardware"
+SERVING_DIR = REPO / "src" / "repro_torch" / "serving"
 
 mgdlint = pytest.importorskip(
     "mgdlint", reason="tools/ not on sys.path (see tests/conftest.py)")
@@ -21,9 +22,21 @@ from mgdlint.rules import LockDiscipline, TimeoutDiscipline  # noqa: E402
 from mgdlint.walker import SourceFile, dotted_name  # noqa: E402
 
 
-def _sources(subdir=None):
-    root = HARDWARE_DIR / subdir if subdir else HARDWARE_DIR
+def _sources(subdir=None, root=HARDWARE_DIR):
+    root = root / subdir if subdir else root
     return [SourceFile(path, REPO) for path in sorted(root.rglob("*.py"))]
+
+
+def _untimed_results(sources):
+    offenders = []
+    for source in sources:
+        for node in ast.walk(source.tree):
+            if isinstance(node, ast.Call) \
+                    and isinstance(node.func, ast.Attribute) \
+                    and node.func.attr == "result" \
+                    and not any(k.arg == "timeout" for k in node.keywords):
+                offenders.append(f"{source.rel}:{node.lineno}")
+    return offenders
 
 
 def test_hardware_sources_exist():
@@ -38,14 +51,7 @@ def test_every_result_call_passes_a_timeout():
     """Every ``.result(`` call in the port's hardware/ passes
     ``timeout=`` — the port's twin of the reference's ``.result(`` guard
     (a hung chip would otherwise block the training step forever)."""
-    offenders = []
-    for source in _sources():
-        for node in ast.walk(source.tree):
-            if isinstance(node, ast.Call) \
-                    and isinstance(node.func, ast.Attribute) \
-                    and node.func.attr == "result" \
-                    and not any(k.arg == "timeout" for k in node.keywords):
-                offenders.append(f"{source.rel}:{node.lineno}")
+    offenders = _untimed_results(_sources())
     assert not offenders, "`.result(` without timeout=: " + ", ".join(
         offenders)
 
@@ -67,6 +73,28 @@ def test_mgdlint_rule_holds_on_port_hardware(rule, subdir):
         for w in source.waivers:
             assert not w.malformed, f"{source.rel}:{w.line}: {w.malformed}"
     assert checked >= 4
+    assert not offenders, "\n".join(offenders)
+
+
+def test_serving_tier_bounds_every_wait():
+    """The serving tier (``serving/``, the twin of the reference's
+    ``serving/online.py``): ``online.py`` keeps ``DEFAULT_TIMEOUT_S``,
+    every ``.result(`` passes ``timeout=`` and mgdlint's timeout rule
+    (every Future.result, wait, queue get, join and acquire bounded)
+    holds, so a stuck predict or trainer surfaces as a timeout."""
+    sources = _sources(root=SERVING_DIR)
+    assert {pathlib.Path(s.rel).name for s in sources} >= {
+        "__init__.py", "decode.py", "online.py"}
+    online = next(s for s in sources if s.rel.endswith("online.py"))
+    assert any(isinstance(n, ast.Assign) and any(
+        getattr(t, "id", None) == "DEFAULT_TIMEOUT_S" for t in n.targets)
+        for n in online.tree.body)
+    assert not _untimed_results(sources)
+    offenders = []
+    for source in sources:
+        for f in TimeoutDiscipline().check(source):
+            if not source.waived(f.code, f.line):
+                offenders.append(f.format())
     assert not offenders, "\n".join(offenders)
 
 

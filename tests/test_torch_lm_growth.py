@@ -12,7 +12,16 @@ port's.  The two runs stay within the transformer's stated tolerances
 first 13 steps only; from step 14 the chaotic growth of that gain takes
 them apart (C̃ 1.2e-1 and params 3.0e-1 by step 20), so the 20-step run
 is not held to them — C3 stays open with that gap.
+
+The control is the reference against itself with one parameter (element
+0 of the stacked ``wq``) moved by one ulp, over the same 20 steps: its
+gap starts at 2.4e-7 in C̃ (the port's step-0 gap) and grows by the same
+~1.9× a step (measured: 9.9e-4 / 2.9e-3 at step 15, 2.7e-2 / 4.5e-2 at
+step 20), leaving 1e-2 / 2e-2 at step 20 where the port leaves them at
+step 14: the port's rounding differs at every step, the control's once.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,31 +42,11 @@ CT_RUN_ATOL = 1e-2
 PARAM_RUN_ATOL = 2e-2
 
 
-def _runs():
-    jcfg = jsmoke("qwen3-14b")
-    tcfg = rt.get_smoke_config("qwen3-14b")
-    ref = jax.tree_util.tree_map(
-        np.asarray, jt.model_init(jcfg, jax.random.PRNGKey(0)))
-    sample = jlm_sampler(2, 16, jcfg.vocab, seed=0)
-    batches = [jax.tree_util.tree_map(np.asarray, sample(i))
-               for i in range(STEPS)]
-    base = dict(dtheta=1e-2, eta=1e-2, seed=0, mode="central", fused=True)
+BASE = dict(dtheta=1e-2, eta=1e-2, seed=0, mode="central", fused=True)
 
-    mcfg = tmgd.MGDConfig(**base)
-    step = tmgd.build_mgd_step(lambda p, b: tt.model_loss(p, tcfg, b), mcfg,
-                               probe_fn=tt.make_transformer_probe_fn(tcfg))
-    params = convert.to_torch(ref, device="cpu")
-    state = tmgd.mgd_init(params, mcfg)
-    port = {"cost": [], "c_tilde": [], "params": []}
-    for b in batches:
-        params, state, m = step(params, state,
-                                convert.to_torch(b, device="cpu"))
-        port["cost"].append(m["cost"].item())
-        port["c_tilde"].append(m["c_tilde"].item())
-        port["params"].append(np.concatenate(
-            [x.numpy().ravel() for x in tree_leaves(params)]))
 
-    jm = jcore.MGDConfig(kernel_impl="interpret", **base)
+def _reference_run(jcfg, ref, batches):
+    jm = jcore.MGDConfig(kernel_impl="interpret", **BASE)
     jstep = jax.jit(jcore.build_mgd_step(
         lambda p, b: jt.model_loss(p, jcfg, b), jm,
         probe_fn=jt.make_transformer_probe_fn(jcfg)))
@@ -72,6 +61,36 @@ def _runs():
         jref["params"].append(np.concatenate(
             [np.asarray(x).ravel() for x in jax.tree_util.tree_leaves(
                 jparams)]))
+    return jref
+
+
+@functools.lru_cache(maxsize=1)
+def _setup():
+    jcfg = jsmoke("qwen3-14b")
+    ref = jax.tree_util.tree_map(
+        np.asarray, jt.model_init(jcfg, jax.random.PRNGKey(0)))
+    sample = jlm_sampler(2, 16, jcfg.vocab, seed=0)
+    batches = [jax.tree_util.tree_map(np.asarray, sample(i))
+               for i in range(STEPS)]
+    return jcfg, ref, batches, _reference_run(jcfg, ref, batches)
+
+
+def _runs():
+    jcfg, ref, batches, jref = _setup()
+    tcfg = rt.get_smoke_config("qwen3-14b")
+    mcfg = tmgd.MGDConfig(**BASE)
+    step = tmgd.build_mgd_step(lambda p, b: tt.model_loss(p, tcfg, b), mcfg,
+                               probe_fn=tt.make_transformer_probe_fn(tcfg))
+    params = convert.to_torch(ref, device="cpu")
+    state = tmgd.mgd_init(params, mcfg)
+    port = {"cost": [], "c_tilde": [], "params": []}
+    for b in batches:
+        params, state, m = step(params, state,
+                                convert.to_torch(b, device="cpu"))
+        port["cost"].append(m["cost"].item())
+        port["c_tilde"].append(m["c_tilde"].item())
+        port["params"].append(np.concatenate(
+            [x.numpy().ravel() for x in tree_leaves(params)]))
     return port, jref
 
 
@@ -87,3 +106,21 @@ def test_lm_cost_grows_in_both_packages_at_launch_settings():
     np.testing.assert_allclose(np.stack(port["params"][:TRACKED]),
                                np.stack(ref["params"][:TRACKED]),
                                atol=PARAM_RUN_ATOL)
+
+
+def test_reference_one_ulp_apart_from_itself_grows_alike():
+    """C3's control: the reference against itself, one parameter moved by
+    one ulp.  The gap grows under the same gain (by > 10⁴ from step 2 to
+    20) and stays within the tolerances the port is held to for at least
+    as many steps as the port does (measured: it leaves them at step 20)."""
+    jcfg, ref, batches, base = _setup()
+    moved = jax.tree_util.tree_map(np.copy, ref)
+    wq = moved["layers"]["attn"]["wq"]["w"].reshape(-1)
+    wq[0] = np.nextafter(wq[0], np.float32(np.inf))
+    ctrl = _reference_run(jcfg, moved, batches)
+    dc = np.abs(np.asarray(ctrl["c_tilde"]) - np.asarray(base["c_tilde"]))
+    dp = np.abs(np.stack(ctrl["params"]) - np.stack(base["params"])).max(1)
+    assert dc[0] == 0.0 and 0 < dp[0] <= 1e-7        # one ulp moved
+    assert dc[-1] > 1e4 * dc[1] > 0
+    assert (dc[:TRACKED] <= CT_RUN_ATOL).all()
+    assert (dp[:TRACKED] <= PARAM_RUN_ATOL).all()

@@ -107,8 +107,9 @@ def test_unknown_arch_and_other_families_raise():
     for kw in ({"fsdp": True}, {"seq_parallel": True}):
         with pytest.raises(NotImplementedError, match="A15"):
             tt.model_init(tcfg.replace(**kw), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tt.init_cache(tcfg, 1, 8)
+    for kw in ({"family": "ssm"}, {"use_mla": True}):
+        with pytest.raises(NotImplementedError, match="A14"):
+            tt.init_cache(tcfg.replace(**kw), 1, 8, device="cpu")
 
 
 # --- convert: bf16 carried bitwise ------------------------------------------
