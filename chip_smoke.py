@@ -108,7 +108,7 @@ Phases, each fatal on failure (nothing is caught):
    fractions of them), and a control that must miss: the MGD gate rerun
    with cuDNN's TF32 under ``conv2d``.  Printed: MGD and backprop
    steps/s, the sampler's ms a batch, held-out accuracy on 512 samples
-   after 2000 MGD and 400 backprop steps, peak memory.
+   after 1000 MGD and 400 backprop steps, peak memory.
 
 11. Probe parallelism and the chip farm (4 pods or chips).  11a: NIST7x7
    49-4-4 through ``driver("probe_parallel", ..., mesh=LocalMesh(pod=4))``,
@@ -155,6 +155,36 @@ Phases, each fatal on failure (nothing is caught):
    torn-swap hammer (1024 requests under a publish loop) gives 0, and
    serve → trim → checkpoint (a temporary directory, removed) → restore
    → trim equals the uninterrupted run bitwise (f32).
+
+13. The attention families at full width, bf16, random weights from seed
+   0, ``launch/train.py``'s batch 8 × 64, Δθ = η = 1e-2, central.  13a
+   qwen2-vl-2b, all 28 layers (patch embeddings and M-RoPE positions
+   [8, 64, 3] from a seed, the LM stream's labels) and 13b
+   musicgen-medium, all 48 layers (codebook tokens [8, 4, 64], labels
+   [8, 64, 4]), and 13e mistral-nemo-12b, granite-34b (MQA) and qwen2-72b
+   (QKV bias) at one layer each, on the fused path: 2 steps C̃-gated
+   against the plain route from the same state as in phase 5 (both
+   controls must miss at the first), then 2 counted steps of 7·L + 1
+   tensor-core pair launches and one window update; 13a/13b's decode
+   gate as phase 12a's (8 bf16 ulps of max|logit|, two controls) on
+   embeddings [8, 1, 1536] and codebook tokens [8, 4].  13c
+   llama4-scout-17b-a16e (MoE, 16 experts top-1 + shared), 2 of its 48
+   layers: materialized probes and the window update over every matrix
+   leaf, the rank-4 expert banks [2, 16, 5120, 8192] included (one launch
+   a dtype: bf16 and the f32 router), 3 steps whose params must equal the
+   plain update's bitwise and differ from another seed's, then 2 counted
+   steps with no perturbed-matmul launch; the share of routings capacity
+   drops at each step; peak memory under 80 GB.  13d deepseek-v3-671b
+   (MLA + MoE, 256 experts top-8), 1 of its 61 layers, serving only (an
+   MGD step's three trees would be 80 GB): the forward of 8 × 64 tokens
+   and its drop share, timed absorbed-form decode steps beside their
+   bytes bound, and the bf16 decode reading against the forward
+   (printed).  The MoE decode gates (13c, 13d) run in f32 at the
+   capacity factor at which nothing drops: decode against the full
+   forward within 2⁻¹⁶ of max|logit|, a limit one bf16 rounding would
+   miss, and both controls (length short; K/V, for MLA c_kv, zeroed at
+   the last position) missing it; in bf16, near-tied routings flip
+   between the two.
 
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
@@ -203,7 +233,7 @@ LM_SHAPES = [(LM_TOKENS, 5120, 5120), (LM_TOKENS, 5120, 1024),
              (LM_TOKENS, 5120, 151936)]
 LM_MAIN = (LM_TOKENS, 5120, 17408)          # gate/up: the kernels line
 UPDATE_SHAPES = [(128, 256, 4), (96, 80, 7), (5120, 17408, 4)]
-TRAIN_STEPS = 3000
+TRAIN_STEPS = 2000
 CT_CHECK_STEPS = 32
 CT_ATOL = 1e-5
 # matmul max error / max|y|: f32 the reference tests' 1e-4; bf16 two ulps of
@@ -888,7 +918,7 @@ def ct_gate_record(cts, plain_cts, other_cts, costs, what):
 
 
 def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
-                 plant=None, read_plant=None, make=None):
+                 plant=None, read_plant=None, make=None, what=None):
     """The first ``steps`` steps of the kernel run, each probed again
     from the same params, state and batch through the plain route and, as
     a control, through the kernel route with another seed's signs.  Fails
@@ -917,8 +947,23 @@ def c_tilde_gate(torch, rt, cfg, dev, sample, p0, kw, steps=LM_CT_STEPS,
         costs.append(aux["cost"].item())
     torch.cuda.synchronize()
     rec = ct_gate_record(cts, plain_cts, other_cts, costs,
-                         f"transformer {kw}")
+                         what or f"transformer {kw}")
     return params, state, drv, rec
+
+
+def controls_each_step(gate, plain, others, costs, n, what):
+    """Both controls of the C̃ gate (C̃ = 0, another seed's C̃) read against
+    the plain route's C̃ at every step, in tolerances of the step's cost,
+    into ``gate``; each must miss at each of the first ``n`` steps."""
+    tols = [LM_CT_REL * abs(c) for c in costs]
+    for control, vals in (("zero", [0.0] * len(plain)),
+                          ("other_seed", others)):
+        per_step = [abs(v - p) / t for v, p, t in zip(vals, plain, tols)]
+        gate[f"control_{control}_err_in_tols_per_step"] = per_step
+        if not all(m > 1.0 for m in per_step[:n]):
+            fail(f"{what}: the C̃ gate passes its control_{control} at one "
+                 f"of the first {n} steps ({per_step})")
+    return gate
 
 
 def transformer_slice(torch, rt, kernels, card, dev):
@@ -1493,7 +1538,7 @@ def paper_model(torch, rt, kernels, tasks, pipeline, card, dev):
 
 CNN_BATCH = 64
 CNN_GATE_STEPS = 16
-CNN_MGD_STEPS = 2000        # of Table 2's 8000 (Fashion) / 6000 (CIFAR)
+CNN_MGD_STEPS = 1000        # of Table 2's 8000 (Fashion) / 6000 (CIFAR)
 CNN_EPOCH = 250
 CNN_BP_STEPS = 400          # Table 2's backprop budget, η = 0.02
 CNN_BP_ETA = 0.02
@@ -2028,44 +2073,101 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def decode_errors(torch, tt, params, cfg, toks, full, *, shift=0,
-                  zero_last=False):
-    """Teacher-forced decode from a GATE_PREFILL-token prefill: the largest
-    gap to the full forward's logits at every later position.  ``shift``
-    makes the cache's length that much short; ``zero_last`` zeroes the
-    last written cache position before each step (the two controls)."""
+def decode_errors(torch, tt, params, cfg, seq, full, *, kind="tokens",
+                  shift=0, zero_last=False):
+    """Teacher-forced decode from a GATE_PREFILL-position prefill: the
+    largest gap to the full forward's logits at every later position.
+    ``seq`` is tokens [B, S] (``kind="tokens"``), codebook tokens [B, nq,
+    S] (``"codebooks"``) or stub-frontend embeddings [B, S, d]
+    (``"embeds"``).  ``shift`` makes the cache's length that much short;
+    ``zero_last`` zeroes the last written cache position before each step,
+    K and V (for MLA the latent c_kv): the two controls."""
+    length = seq.shape[-1] if kind == "codebooks" else seq.shape[1]
+
+    def at(t0, t1):
+        return seq[:, :, t0:t1] if kind == "codebooks" else seq[:, t0:t1]
+
+    zeroed = ("c_kv",) if cfg.use_mla else ("k", "v")
     with torch.no_grad():
-        pf, cache = tt.model_prefill(params, cfg,
-                                     {"tokens": toks[:, :GATE_PREFILL]},
-                                     toks.shape[1])
+        pf, cache = tt.model_prefill(
+            params, cfg,
+            {"embeds" if kind == "embeds" else "tokens": at(0, GATE_PREFILL)},
+            length)
         err = (pf.float() - full[:, :GATE_PREFILL].float()).abs().max().item()
         cache["length"] = cache["length"] - shift
-        for t in range(GATE_PREFILL, toks.shape[1]):
+        for t in range(GATE_PREFILL, length):
             if zero_last:
                 last = int(cache["length"]) - 1
-                cache["k"][:, :, last] = 0
-                cache["v"][:, :, last] = 0
-            lg, cache = tt.model_decode(params, cfg, toks[:, t], cache)
+                for key in zeroed:
+                    cache[key][:, :, last] = 0
+            if kind == "embeds":
+                lg, cache = tt.model_decode(params, cfg, None, cache,
+                                            embeds=at(t, t + 1))
+            else:
+                lg, cache = tt.model_decode(params, cfg, at(t, t + 1)[..., 0],
+                                            cache)
             err = max(err, (lg.float() - full[:, t].float()).abs().max()
                       .item())
     return err
 
 
-def decode_bound(torch, rt, params, cfg, batch, max_len):
+def decode_gate(torch, tt, params, cfg, seq, full, what, *, kind="tokens",
+                rel=None):
+    """The decode gate on ``seq``: its error against the full forward
+    within GATE_ULPS bf16 ulps of max|logit| (or ``rel``·max|logit|), and
+    both controls (the cache's length one short, the last written cache
+    position zeroed) missing it.  Returns the record."""
+    top = full.float().abs().max().item()
+    limit = rel * top if rel else GATE_ULPS * bf16_ulp(top)
+    err = decode_errors(torch, tt, params, cfg, seq, full, kind=kind)
+    short = decode_errors(torch, tt, params, cfg, seq, full, kind=kind,
+                          shift=1)
+    zeroed = decode_errors(torch, tt, params, cfg, seq, full, kind=kind,
+                           zero_last=True)
+    rec = dict(gate_limit=limit, gate_err=err, gate_err_in_limits=err / limit,
+               control_length_short_in_limits=short / limit,
+               control_zeroed_last_in_limits=zeroed / limit,
+               max_abs_logit=top, decode_positions=seq.shape[-1 if kind ==
+                                                            "codebooks" else 1]
+               - GATE_PREFILL)
+    if not err <= limit:
+        fail(f"{what}: decode differs from the full forward by {err} > "
+             f"{limit}")
+    for control in ("control_length_short", "control_zeroed_last"):
+        if not rec[control + "_in_limits"] > 1.0:
+            fail(f"{what}: the decode gate passes its {control} ({rec})")
+    return rec
+
+
+def decode_bound(torch, rt, params, cfg, batch, max_len, *, cache=None,
+                 routed_elems=None):
     """Bytes a decode step must move (each input read once, each output
     written once): every layer's weights, the final norm and the untied
-    head, the batch's embedding rows, the KV cache, the logits; and its
-    bf16 operations (2 per weight and token)."""
+    head, the batch's embedding rows, the cache (``cache``'s tensors, or
+    GQA's K and V at ``max_len``), the logits; and its bf16 operations (2
+    per weight and token; with ``routed_elems``, the layers' expert-bank
+    elements a token's routed experts hold, the banks count only those)."""
     leaves = rt.core.utils.tree_leaves(params["layers"])
-    esz = leaves[0].element_size()
+    esz = params["embed"]["head"]["w"].element_size()
+    layer_bytes = sum(x.numel() * x.element_size() for x in leaves)
     layer_elems = sum(x.numel() for x in leaves)
     head = params["embed"]["head"]["w"].numel()
-    kv = 2 * cfg.n_layers * batch * max_len * cfg.kv_heads * cfg.head_dim
-    nbytes = ((layer_elems + head + cfg.d_model + kv
-               + batch * cfg.d_model) * esz + batch * cfg.vocab * esz)
+    if cache is None:
+        kv = (2 * cfg.n_layers * batch * max_len * cfg.kv_heads
+              * cfg.head_dim * esz)
+    else:
+        kv = sum(t.numel() * t.element_size() for k, t in cache.items()
+                 if k != "length")
+    logits = batch * cfg.vocab * max(cfg.n_codebooks, 1)
+    nbytes = (layer_bytes + kv + (head + cfg.d_model + batch * cfg.d_model
+                                  + logits) * esz)
+    if routed_elems is not None:
+        banks = sum(params["layers"]["moe"][k].numel()
+                    for k in ("gate", "up", "down"))
+        layer_elems = layer_elems - banks + routed_elems
     flops = 2.0 * (layer_elems + head) * batch
     ms, by = bound(flops, nbytes, "bfloat16")
-    return dict(bytes=nbytes, weight_bytes=(layer_elems + head) * esz,
+    return dict(bytes=nbytes, weight_bytes=layer_bytes + head * esz,
                 flops=flops, bound_ms=ms, bound_by=by)
 
 
@@ -2133,31 +2235,17 @@ def serving_generation(torch, rt, kernels, card, dev):
     seq = prompts
     with torch.no_grad():
         full = tt.model_forward(params, cfg, {"tokens": seq})
-    limit = GATE_ULPS * bf16_ulp(full.float().abs().max().item())
-    err = decode_errors(torch, tt, params, cfg, seq, full)
-    short = decode_errors(torch, tt, params, cfg, seq, full, shift=1)
-    zeroed = decode_errors(torch, tt, params, cfg, seq, full,
-                           zero_last=True)
+    gate = decode_gate(torch, tt, params, cfg, seq, full, "serving")
     rec = dict(
         layers=cfg.n_layers, batch=GEN_BATCH, prompt=GEN_PROMPT,
         new_tokens=GEN_NEW, launcher_s=launcher_s, generate_s=gen_s,
         tok_per_s=GEN_BATCH * GEN_NEW / gen_s, prefill_ms=prefill_ms,
         decode_ms_per_step=decode_ms, decode_profile=prof,
         peak_mem_gb=peak_gb, decode_bound=bnd,
-        decode_bound_share=bnd["bound_ms"] / decode_ms,
-        gate_limit=limit, gate_err=err, gate_err_in_limits=err / limit,
-        control_length_short_in_limits=short / limit,
-        control_zeroed_last_in_limits=zeroed / limit,
-        max_abs_logit=full.float().abs().max().item(),
+        decode_bound_share=bnd["bound_ms"] / decode_ms, **gate,
         sample=gen[0, :16].tolist(), launches=kernels.launch_counts(),
         card=card)
     print(json.dumps({"serving_generation": rec}), flush=True)
-    if not err <= limit:
-        fail(f"serving: decode differs from the full forward by {err} > "
-             f"{limit} ({GATE_ULPS} bf16 ulps of max|logit|)")
-    for control in ("control_length_short", "control_zeroed_last"):
-        if not rec[control + "_in_limits"] > 1.0:
-            fail(f"serving: the decode gate passes its {control} ({rec})")
     if any(rec["launches"].values()):
         fail(f"serving: generation launched kernels {rec['launches']}")
     del params, full
@@ -2232,14 +2320,8 @@ def serving_online(torch, rt, kernels, card, dev):
         n = SERVE_CT_GATED
         gate = ct_gate_record(cts[:n], plain[:n], others[:n], costs[:n],
                               "serving trimmer")
+        controls_each_step(gate, plain, others, costs, n, "serving trimmer")
         tols = [LM_CT_REL * abs(c) for c in costs]
-        for control, vals in (("zero", [0.0] * len(cts)),
-                              ("other_seed", others)):
-            per_step = [abs(v - p) / t for v, p, t in zip(vals, plain, tols)]
-            gate[f"control_{control}_err_in_tols_per_step"] = per_step
-            if not all(m > 1.0 for m in per_step[:n]):
-                fail(f"serving trimmer: the C̃ gate passes its control_"
-                     f"{control} at a gated step ({per_step[:n]})")
         gate.update(
             c_tilde_gated_steps=n,
             c_tilde_ungated=dict(
@@ -2318,6 +2400,441 @@ def serving_mlp(torch, card, dev):
         fail("serving: serve→trim→resume is not bitwise the uninterrupted "
              "run")
     return rec
+
+
+# -- phase 13: the attention families -----------------------------------------
+
+FAM_BATCH, FAM_SEQ = 8, 64     # launch/train.py's batch
+FAM_CT_STEPS = 2               # steps C̃-gated against the plain route
+# of them, the steps at which both controls must miss: the first, where the
+# cost is at its start.  The gate resolves C̃ to 2⁻¹¹ of the cost (~6e-3),
+# and a later step's C̃ (or another seed's) can land within that of 0 (or
+# of the plain C̃) by chance: at the second step on an H100, mistral-nemo's
+# C̃ read 0.76 of the limit from 0 and qwen2-vl's other seed 0.21 from the
+# plain C̃.  Later steps' control readings are printed.
+FAM_CONTROL_STEPS = 1
+FAM_MAIN_STEPS = 2             # counted steps, kernel route only
+TRIO = ("mistral-nemo-12b", "granite-34b", "qwen2-72b")
+TRIO_LAYERS = 1
+MOE_LAYERS = 2                 # llama4-scout: the depth 80 GB leaves room for
+MOE_GATE_STEPS = 3             # B3 against its plain version, bitwise
+MOE_MAIN_STEPS = 2
+MOE_PEAK_GB = 80.0
+MLA_LAYERS = 1                 # deepseek-v3: one layer is 23 GB of weights
+MLA_DECODE_STEPS = 16          # timed decode steps (bf16)
+# the MoE decode gates run in f32 with the capacity raised so that nothing
+# can drop: in bf16 the decode and the full forward round the attention
+# output apart by an ulp, which moves router logits by ~1e-3 and flips
+# near-tied routings (a different expert, a different logit); in f32 the
+# two forms differ by the order of f32 sums only (K ≤ 16,384 products:
+# ~√K·2⁻²⁴ ≈ 8e-6 of a value at worst), so 2⁻¹⁶ of max|logit| holds them,
+# and one bf16 rounding on the path (2⁻⁹) would miss it
+MOE_DECODE_REL = 2.0 ** -16
+MOE_DECODE_CF = {"llama4-scout-17b-a16e": 16.0,    # C = 512 = the group
+                 "deepseek-v3-671b": 32.0}        # C = 128 = the group
+
+
+def family_sampler(torch, rt, cfg, dev, seed=0):
+    """Batches of FAM_BATCH × FAM_SEQ for ``cfg``: VLM patch embeddings
+    (normal, in the model's dtype) with M-RoPE positions [B, S, 3] (each
+    in [0, S)) from a seed, and the LM stream's labels (text follows the
+    Zipf-Markov law; uniform labels would leave C̃ within a few gate
+    tolerances of 0, where a control can pass by chance); codebook tokens
+    [B, nq, S] with labels [B, S, nq] as ``launch/train.py`` draws them;
+    tokens otherwise."""
+    from repro_torch.launch.train import codebook_sampler
+
+    if cfg.family == "vlm":
+        text = rt.lm_sampler(FAM_BATCH, FAM_SEQ, cfg.vocab, seed=seed,
+                             device=dev)
+
+        def sample(i):
+            g = torch.Generator(device=dev).manual_seed(seed * 100003 + i)
+            emb = torch.randn((FAM_BATCH, FAM_SEQ, cfg.d_model),
+                              generator=g, device=dev).to(cfg.torch_dtype)
+            pos = torch.randint(0, FAM_SEQ, (FAM_BATCH, FAM_SEQ, 3),
+                                generator=g, device=dev, dtype=torch.int32)
+            return {"embeds": emb, "positions": pos,
+                    "labels": text(i)["labels"]}
+        return sample
+    nq = max(cfg.n_codebooks, 1)
+    sample = rt.lm_sampler(FAM_BATCH * nq, FAM_SEQ, cfg.vocab, seed=seed,
+                           device=dev)
+    return codebook_sampler(sample, nq) if cfg.n_codebooks else sample
+
+
+def window_launches(params):
+    """Window-update launches one update of ``params`` makes: one for each
+    run of up to 64 ndim ≥ 2 leaves of a dtype."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.kernels import mgd_update
+
+    by_dtype = {}
+    for leaf in tree_leaves(params):
+        if leaf.dim() >= 2:
+            by_dtype[leaf.dtype] = by_dtype.get(leaf.dtype, 0) + 1
+    return sum(-(-n // mgd_update.MAX_LEAVES) for n in by_dtype.values())
+
+
+def counted_steps(torch, rt, kernels, drv, params, state, sample, steps,
+                  expected, route, what, start=0, recorder=None):
+    """``steps`` kernel-route steps with the launch counters zeroed before
+    them; fails unless they equal ``expected``.  Returns (params, state,
+    record)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_s, costs = [], []
+    for n in range(start, start + steps):
+        t0 = time.perf_counter()
+        params, state, aux = drv.step(params, state, sample(n))
+        costs.append(aux["cost"].item())
+        step_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    if counts != expected:
+        fail(f"{what}: launches {counts} != expected {expected}")
+    by_route = check_routes(kernels, counts, route, what) if route else \
+        kernels.route_launch_counts()
+    if not all(math.isfinite(c) for c in costs):
+        fail(f"{what}: a cost went non-finite")
+    return params, state, dict(s_per_step=step_s, costs=costs,
+                               launches=counts, launches_by_kernel=by_route)
+
+
+def fused_family(torch, rt, kernels, card, dev, arch, n_layers=None,
+                 decode_kind=None):
+    """13a, 13b, 13e: ``arch`` at full width (``n_layers`` layers, all when
+    None), bf16, fused central: the C̃ gate near the start, then counted
+    steps (7 tensor-core pair launches a layer and the head's, one window
+    update); with ``decode_kind`` the decode gate on a batch's inputs."""
+    from repro_torch.models import transformer as tt
+
+    cfg = rt.get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    what = f"{arch} ({cfg.n_layers} layers)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p0 = rt.model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in rt.core.utils.tree_leaves(p0))
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    sample = family_sampler(torch, rt, cfg, dev)
+    params, state, drv, gate = c_tilde_gate(
+        torch, rt, cfg, dev, sample, p0, dict(mode="central"),
+        steps=FAM_CT_STEPS, what=what)
+    controls_each_step(gate, gate["c_tilde_first_plain"],
+                       gate["c_tilde_first_other_seed"], gate["first_costs"],
+                       FAM_CONTROL_STEPS, what)
+    del p0
+    expected = lm_expected(cfg.n_layers, "central", FAM_MAIN_STEPS)
+    expected["mgd_update_window"] *= window_launches(params)
+    params, state, main = counted_steps(
+        torch, rt, kernels, drv, params, state, sample, FAM_MAIN_STEPS,
+        expected, "tc", what, start=FAM_CT_STEPS)
+    rec = dict(arch=arch, layers=cfg.n_layers, params=n_params,
+               params_gb=params_gb, init_s=init_s, **gate, **main,
+               pair_launches_per_step=7 * cfg.n_layers + 1)
+    del params, state, drv
+    torch.cuda.empty_cache()
+    if decode_kind:
+        params = rt.model_init(cfg, 0, device=dev)
+        b = sample(0)
+        seq = {"embeds": b.get("embeds"), "codebooks": b.get("tokens"),
+               "tokens": b.get("tokens")}[decode_kind]
+        key = "embeds" if decode_kind == "embeds" else "tokens"
+        with torch.no_grad():
+            full = tt.model_forward(params, cfg, {key: seq})
+        rec["decode_gate"] = decode_gate(torch, tt, params, cfg, seq, full,
+                                         f"{what} decode", kind=decode_kind)
+        del params, full
+    rec.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=card)
+    print(json.dumps({"family": rec}), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tree_equal(torch, a, b):
+    from repro_torch.core.utils import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def moe_decode_gate(torch, rt, tt, cfg, dev, seed, what):
+    """The decode gate of an MoE model in f32 at the capacity factor at
+    which nothing drops (MOE_DECODE_CF): prefill, teacher-forced decode
+    against the full forward within MOE_DECODE_REL of max|logit|, and both
+    controls missing it."""
+    cfg32 = cfg.replace(dtype="float32",
+                        moe_capacity_factor=MOE_DECODE_CF[cfg.name])
+    params = rt.model_init(cfg32, seed, device=dev)
+    toks = family_sampler(torch, rt, cfg32, dev, seed=seed)(0)["tokens"]
+    with torch.no_grad():
+        full = tt.model_forward(params, cfg32, {"tokens": toks})
+    rec = decode_gate(torch, tt, params, cfg32, toks, full, what,
+                      rel=MOE_DECODE_REL)
+    rec.update(dtype="float32",
+               capacity_factor=cfg32.moe_capacity_factor)
+    del params, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_family(torch, rt, kernels, card, dev):
+    """13c: llama4-scout at full width, MOE_LAYERS layers, bf16, fused
+    central: materialized probes (no perturbed-matmul launch) and the
+    window-update kernel over every matrix leaf, the rank-4 expert banks
+    included; the first MOE_GATE_STEPS steps against the plain update from
+    the same state, bitwise, with another seed's update as the control,
+    the drop share of every step; then the f32 decode gate."""
+    from repro_torch.core import perturbations as pert
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as tt
+
+    cfg = rt.get_config("llama4-scout-17b-a16e").replace(
+        n_layers=MOE_LAYERS)
+    what = f"llama4-scout ({cfg.n_layers} layers)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rt.model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in rt.core.utils.tree_leaves(params))
+    bank_elems = params["layers"]["moe"]["gate"].numel()
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    sample = family_sampler(torch, rt, cfg, dev)
+    drv = lm_driver(rt, cfg, dev, mode="central")
+    ref = lm_driver(rt, cfg, dev, "ref", mode="central")
+    other = lm_driver(rt, cfg, dev, seed=1, mode="central")
+    state = drv.init(params)
+    gate_steps, drops = [], []
+    windows = window_launches(params)
+    for n in range(MOE_GATE_STEPS):
+        batch = sample(n)
+        p_plain, _, aux_plain = ref.step(params, state, batch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tmoe.DropRecorder() as rec_drops:
+            p_k, s_k, aux = drv.step(params, state, batch)
+            ct = aux["c_tilde"].item()
+        step_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        routed, dropped = rec_drops.totals()
+        drops.append(dropped / routed)
+        same = tree_equal(torch, p_k, p_plain)
+        ct_plain = aux_plain["c_tilde"].item()
+        del p_plain
+        p_o, _, aux_o = other.step(params, state, batch)
+        differs = not tree_equal(torch, p_o, p_k)
+        ct_other = aux_o["c_tilde"].item()
+        del p_o
+        gate_steps.append(dict(
+            c_tilde=ct, c_tilde_plain=ct_plain, c_tilde_other_seed=ct_other,
+            cost=aux["cost"].item(), params_bitwise_plain=same,
+            control_other_seed_differs=differs, drop_share=drops[-1],
+            s_per_step=step_s, launches=counts))
+        if ct != ct_plain or not same:
+            fail(f"{what}: step {n}: the window-update kernel's params or C̃ "
+                 f"differ from the plain route's ({gate_steps[-1]})")
+        if not differs:
+            fail(f"{what}: step {n}: another seed's update equals this "
+                 f"one's")
+        if counts["perturbed_matmul"] or counts["perturbed_matmul_pair"] or \
+                counts["mgd_update_window"] != windows:
+            fail(f"{what}: step {n} launched {counts}, expected no "
+                 f"perturbed matmul and {windows} window updates")
+        params, state = p_k, s_k
+        del p_k, s_k
+    expected = dict(perturbed_matmul=0, perturbed_matmul_pair=0,
+                    mgd_update_window=windows * MOE_MAIN_STEPS, mgd_update=0)
+    with tmoe.DropRecorder() as rec_drops:
+        params, state, main = counted_steps(
+            torch, rt, kernels, drv, params, state, sample, MOE_MAIN_STEPS,
+            expected, None, what, start=MOE_GATE_STEPS)
+    routed, dropped = rec_drops.totals()
+    peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_train_gb >= MOE_PEAK_GB:
+        fail(f"{what}: peak {peak_train_gb:.2f} GB")
+    # where a step's time goes: the device's share, and one sign's
+    # perturbed tree (θ + θ̃ formed in the hash's eager int64 ops) alone
+    n = MOE_GATE_STEPS + MOE_MAIN_STEPS
+    prof = device_profile(torch, lambda: drv.step(params, state, sample(n)),
+                          1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = pert.perturbed_tree(params, step=n, seed=0, dtheta=1e-2)
+    torch.cuda.synchronize()
+    theta_s = time.perf_counter() - t0
+    tree_bytes = 2 * sum(x.numel() * x.element_size()
+                         for x in rt.core.utils.tree_leaves(tree))
+    del tree, params, state, drv, ref, other
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dgate = moe_decode_gate(torch, rt, tt, cfg, dev, 0, f"{what} decode")
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+               params_gb=params_gb, bank_elems=bank_elems, init_s=init_s,
+               gate_steps=gate_steps, **main,
+               drop_share_main=dropped / routed, window_launches_per_step=
+               windows, step_profile=prof, perturbed_tree_s=theta_s,
+               perturbed_tree_bound_ms=bound(0.0, tree_bytes)[0],
+               peak_mem_gb=peak_train_gb, decode_gate=dgate,
+               decode_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=card)
+    print(json.dumps({"moe": rec}), flush=True)
+    return rec
+
+
+def mla_family(torch, rt, kernels, card, dev):
+    """13d: deepseek-v3 at full width, MLA_LAYERS layer, bf16, serving
+    only (an MGD step's params, perturbed copy and update output would be
+    3 × 26.7 GB): the forward of a batch with its drop share, prefill and
+    timed absorbed-form decode steps beside their bytes bound, an
+    ungated bf16 reading of decode against the forward; then the f32
+    decode gate.  Launches no kernel."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as tt
+
+    cfg = rt.get_config("deepseek-v3-671b").replace(n_layers=MLA_LAYERS)
+    what = f"deepseek-v3 ({cfg.n_layers} layer)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = rt.model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in rt.core.utils.tree_leaves(params))
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    toks = family_sampler(torch, rt, cfg, dev)(0)["tokens"]
+    with torch.no_grad():
+        with tmoe.DropRecorder() as rec_drops:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = tt.model_forward(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            forward_ms = (time.perf_counter() - t0) * 1e3
+        routed, dropped = rec_drops.totals()
+        if not bool(torch.isfinite(full).all()):
+            fail(f"{what}: non-finite logits")
+        max_len = GATE_PREFILL + MLA_DECODE_STEPS + 1
+        logits, cache = tt.model_prefill(
+            params, cfg, {"tokens": toks[:, :GATE_PREFILL]}, max_len)
+        nxt = logits[:, -1].argmax(-1)
+        tt.model_decode(params, cfg, nxt, cache)           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MLA_DECODE_STEPS):
+            lg, cache = tt.model_decode(params, cfg, nxt, cache)
+            nxt = lg.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / MLA_DECODE_STEPS
+        last = dict(cache, length=cache["length"] - 1)
+        prof = device_profile(
+            torch, lambda: tt.model_decode(params, cfg, nxt, last), 1)
+        routed_elems = (3 * cfg.d_model * cfg.d_ff * cfg.n_experts_active
+                        * cfg.n_layers)
+        bnd = decode_bound(torch, rt, params, cfg, FAM_BATCH, max_len,
+                           cache=cache, routed_elems=routed_elems)
+        del cache, last, logits
+        # bf16: decode against the forward at cf 1.25, read and not gated
+        bf16_err = decode_errors(torch, tt, params, cfg, toks, full)
+    top = full.float().abs().max().item()
+    del params, full
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        fail(f"{what}: serving launched kernels {counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dgate = moe_decode_gate(torch, rt, tt, cfg, dev, 0, f"{what} decode")
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+               params_gb=params_gb, init_s=init_s, forward_ms=forward_ms,
+               drop_share=dropped / routed, decode_ms_per_step=decode_ms,
+               decode_profile=prof, decode_bound=bnd,
+               decode_bound_share=bnd["bound_ms"] / decode_ms,
+               bf16_decode_err_in_8_ulps=bf16_err / (GATE_ULPS
+                                                     * bf16_ulp(top)),
+               peak_mem_gb=peak_gb, decode_gate=dgate,
+               decode_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, card=card)
+    print(json.dumps({"mla": rec}), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_summary(out):
+    """Phase 13's gates and speeds, one entry a sub-phase and model."""
+    def fused(rec):
+        return dict(
+            arch=rec["arch"], layers=rec["layers"],
+            s_per_step=rec["s_per_step"], peak_mem_gb=rec["peak_mem_gb"],
+            launches=rec["launches"],
+            c_tilde_err_in_tols=rec["c_tilde_err_in_tols"],
+            controls_in_tols=(rec["control_zero_err_in_tols_per_step"],
+                              rec["control_other_seed_err_in_tols_per_step"]
+                              ),
+            decode=({k: rec["decode_gate"][k] for k in (
+                "gate_err_in_limits", "control_length_short_in_limits",
+                "control_zeroed_last_in_limits")}
+                if "decode_gate" in rec else None))
+
+    moe, mla = out["13c"], out["13d"]
+    decode_keys = ("gate_err_in_limits", "control_length_short_in_limits",
+                   "control_zeroed_last_in_limits", "gate_limit")
+    return {
+        "13a": fused(out["13a"]), "13b": fused(out["13b"]),
+        "13c": dict(layers=moe["layers"], s_per_step=moe["s_per_step"],
+                    perturbed_tree_s=moe["perturbed_tree_s"],
+                    device_busy_share=moe["step_profile"][
+                        "device_busy_share"],
+                    peak_mem_gb=moe["peak_mem_gb"],
+                    window_bitwise_plain=[g["params_bitwise_plain"]
+                                          for g in moe["gate_steps"]],
+                    drop_share=[g["drop_share"] for g in moe["gate_steps"]]
+                    + [moe["drop_share_main"]], launches=moe["launches"],
+                    decode={k: moe["decode_gate"][k] for k in decode_keys}),
+        "13d": dict(layers=mla["layers"], forward_ms=mla["forward_ms"],
+                    drop_share=mla["drop_share"],
+                    decode_ms_per_step=mla["decode_ms_per_step"],
+                    decode_bound_ms=mla["decode_bound"]["bound_ms"],
+                    peak_mem_gb=mla["peak_mem_gb"],
+                    decode={k: mla["decode_gate"][k] for k in decode_keys}),
+        "13e": [fused(r) for r in out["13e"]],
+        "seconds": out["seconds"]}
+
+
+def attention_families(torch, rt, kernels, card, dev):
+    """Phase 13: 13a qwen2-vl-2b and 13b musicgen-medium at full width and
+    depth, 13c llama4-scout (MoE), 13d deepseek-v3 (MLA + MoE), 13e the
+    dense trio at one layer each.  Returns (records, launch totals)."""
+    out, secs = {}, {}
+    totals = {name: 0 for name in SOURCES}
+    t0 = time.perf_counter()
+    out["13a"] = fused_family(torch, rt, kernels, card, dev, "qwen2-vl-2b",
+                              decode_kind="embeds")
+    secs["13a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["13b"] = fused_family(torch, rt, kernels, card, dev,
+                              "musicgen-medium", decode_kind="codebooks")
+    secs["13b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["13c"] = moe_family(torch, rt, kernels, card, dev)
+    secs["13c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["13d"] = mla_family(torch, rt, kernels, card, dev)
+    secs["13d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["13e"] = [fused_family(torch, rt, kernels, card, dev, arch,
+                               n_layers=TRIO_LAYERS) for arch in TRIO]
+    secs["13e"] = time.perf_counter() - t0
+    for rec in (out["13a"], out["13b"], out["13c"], *out["13e"]):
+        for k, v in rec["launches"].items():
+            totals[k] += v
+    out["seconds"] = secs
+    return out, totals
 
 
 def kernel_device_us(profiles):
@@ -2458,8 +2975,20 @@ def main(argv=None) -> int:
           f"{serving['seconds']['12c']:.1f} s", flush=True)
     done(12, t0)
 
+    # -- phase 13: the attention families at full width -------------------
+    t0 = time.perf_counter()
+    families, family_counts = attention_families(torch, rt, kernels, card,
+                                                 dev)
+    print("phase 13: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in families["seconds"].items()),
+        flush=True)
+    print(json.dumps({"phase13_summary": family_summary(families)}),
+          flush=True)
+    done(13, t0)
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
-                   pp_mlp_counts, pp_lm_counts, serving_counts):
+                   pp_mlp_counts, pp_lm_counts, serving_counts,
+                   family_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -2469,7 +2998,8 @@ def main(argv=None) -> int:
     by_kernel = {name: {"tc": 0, "simt": 0}
                  for name in kernels.MATMUL_WRAPPERS}
     for rec in [*results.values(), *lm_results.values(), deep, imperfect,
-                pp["transformer"], serving["online"]]:
+                pp["transformer"], serving["online"], families["13a"],
+                families["13b"], *families["13e"]]:
         for name, routes in rec.get("launches_by_kernel", {}).items():
             for r, v in routes.items():
                 by_kernel[name][r] += v
@@ -2509,7 +3039,7 @@ def main(argv=None) -> int:
             transformer=lm_results, full_depth=deep,
             imperfect_device=imperfect, resume=resume, paper_model=paper,
             paper_cnns=cnns, probe_parallel=pp, serving=serving,
-            phase_s=phase_s,
+            attention_families=families, phase_s=phase_s,
             ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

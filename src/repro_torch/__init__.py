@@ -12,7 +12,9 @@ reference.  Same front door:
     state = mgd.init(params)
     params, state, aux = mgd.step(params, state, batch)
 
-The dense GQA transformer (Qwen3-14B at full width) trains the same way::
+The decoder transformers of the attention families (dense GQA such as
+Qwen3-14B, the qwen2-vl and musicgen backbones, MoE and MLA: every id in
+``configs.PORTED``) train the same way at full width::
 
     cfg = rt.get_config("qwen3-14b")
     params = rt.model_init(cfg.replace(n_layers=4), seed=0)

@@ -1,14 +1,18 @@
 """Architecture registry: the JAX package's ten arch ids + input shapes.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` resolve an ``--arch``
-id.  The port carries the dense GQA decoder ``qwen3-14b``; the other nine
-ids stay listed and raise until their families are ported (ROADMAP A14).
+id.  The port carries the eight attention-family ids (the dense GQA
+decoders, the VLM and audio backbones, MoE and MLA); ``rwkv6-7b`` and
+``zamba2-7b`` stay listed and raise until the recurrent families are
+ported (ROADMAP A14b).  ``runnable_cells()`` enumerates the reference's
+40 (arch × shape) cells, marking the long_500k skips of the full-attention
+architectures.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, List, Tuple
 
 ARCH_IDS = [
     "rwkv6-7b",
@@ -22,7 +26,9 @@ ARCH_IDS = [
     "musicgen-medium",
     "zamba2-7b",
 ]
-PORTED = ("qwen3-14b",)
+PORTED = ("qwen2-vl-2b", "mistral-nemo-12b", "qwen3-14b", "granite-34b",
+          "qwen2-72b", "deepseek-v3-671b", "llama4-scout-17b-a16e",
+          "musicgen-medium")
 
 
 def _module(name: str):
@@ -30,8 +36,8 @@ def _module(name: str):
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP A14, "
-            f"the other model families); ported: {list(PORTED)}")
+            f"arch {name!r} is not ported to repro_torch yet (ROADMAP A14b, "
+            f"the recurrent families); ported: {list(PORTED)}")
     return importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_')}")
 
@@ -58,3 +64,18 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+# architectures with sub-quadratic sequence handling run long_500k
+LONG_CONTEXT_OK = {"rwkv6-7b", "zamba2-7b"}
+
+
+def runnable_cells() -> List[Tuple[str, str, bool]]:
+    """All 40 cells as (arch, shape, runnable), as the reference lists
+    them (runnable says what the architecture supports, not what the port
+    has ported)."""
+    cells = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            runnable = shape != "long_500k" or arch in LONG_CONTEXT_OK
+            cells.append((arch, shape, runnable))
+    return cells

@@ -160,6 +160,45 @@ def rademacher_leaf(shape, dtype, lid: int, *, step: int, seed: int,
     return (sgn * f32(dtheta)).reshape(shape).to(dtype)
 
 
+THETA_CHUNK = 1 << 26   # elements a pass of ``perturbed_tree``'s hash
+
+
+def theta_range(lseed, start: int, stop: int, dtheta: float, dtype,
+                device=None) -> torch.Tensor:
+    """Rademacher θ̃ of a flattened leaf's elements ``start .. stop − 1``
+    under leaf seed ``lseed``: the hash's index is the element's row-major
+    index, wrapped to uint32 as the reference's uint32 iota wraps, and is
+    formed in int64, so no index past 2³¹ changes sign."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return (rademacher_signs(lseed, idx) * f32(dtheta)).to(dtype)
+
+
+def perturbed_tree(params, *, step: int, seed: int, dtheta: float,
+                   tau_p: int = 1, sign: float = 1.0,
+                   chunk: int = THETA_CHUNK):
+    """``params + sign·θ̃`` for the rademacher θ̃ of ``step``, bit for bit
+    ``tree_add(params, generate(...))`` for sign = +1 and
+    ``tree_axpy(sign, generate(...), params)`` otherwise (``apply_signed``'s
+    float order), formed leaf by leaf in passes of at most ``chunk``
+    elements: neither θ̃ nor its int64 hash temporaries ever exist whole,
+    which a full-width materializing probe could not hold beside the
+    params."""
+    pert_step = int(step) // int(tau_p)
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for lid, leaf in enumerate(leaves):
+        lseed = leaf_seed(seed, pert_step, lid)
+        flat = leaf.reshape(-1)
+        res = torch.empty_like(flat)
+        for start in range(0, flat.numel(), chunk):
+            stop = min(flat.numel(), start + chunk)
+            theta = theta_range(lseed, start, stop, dtheta, leaf.dtype,
+                                leaf.device)
+            res[start:stop] = apply_signed(flat[start:stop], theta, sign)
+        out.append(res.reshape(leaf.shape))
+    return tree_unflatten(treedef, out)
+
+
 def shifted_leaf_seed(lseed: int, offset_elems: int) -> int:
     """Seed under which a kernel's local indices reproduce the global signs
     of a row-major slice that starts ``offset_elems`` into the leaf:

@@ -30,9 +30,14 @@ def leaf_signs(lseed, shape, device=None) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.float32, device=device)
     for start in range(0, n, SIGN_CHUNK):
         stop = min(n, start + SIGN_CHUNK)
-        idx = torch.arange(start, stop, dtype=torch.int64, device=device)
-        out[start:stop] = rademacher_signs(lseed, idx)
+        out[start:stop] = _signs_range(lseed, start, stop, device)
     return out.reshape(shape)
+
+
+def _signs_range(lseed, start: int, stop: int, device) -> torch.Tensor:
+    """Signs of a leaf's row-major elements ``start .. stop − 1``."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return rademacher_signs(lseed, idx)
 
 
 def perturbed_matmul_ref(x, w, lseed, *, dtheta, sign=1.0, out_dtype=None):
@@ -68,9 +73,18 @@ def mgd_update_ref(w, lseeds, coefs, *, eta, dtheta):
 
 def mgd_update_window_ref(w, lseeds, coefs, *, alpha, dtheta):
     """Sequential-axpy window update in the kernel's association:
-    W ← W + α·((Δθ·sign_j)·coefs[j]) for j = 0..J−1 in order."""
-    w32 = w.float()
-    for j, ls in enumerate(_seed_list(lseeds)):
-        sgn = leaf_signs(ls, w.shape, device=w.device)
-        w32 = w32 + f32(alpha) * ((f32(dtheta) * sgn) * coefs[j])
-    return w32.to(w.dtype)
+    W ← W + α·((Δθ·sign_j)·coefs[j]) for j = 0..J−1 in order.  Elementwise,
+    so it runs in passes of ``SIGN_CHUNK`` elements: no f32 copy of a whole
+    leaf exists (an expert bank of 1.34 G elements would need 5.4 GB for
+    each temporary)."""
+    seeds = _seed_list(lseeds)
+    flat = w.reshape(-1)
+    out = torch.empty_like(flat)
+    for start in range(0, flat.numel(), SIGN_CHUNK):
+        stop = min(flat.numel(), start + SIGN_CHUNK)
+        w32 = flat[start:stop].float()
+        for j, ls in enumerate(seeds):
+            sgn = _signs_range(ls, start, stop, w.device)
+            w32 = w32 + f32(alpha) * ((f32(dtheta) * sgn) * coefs[j])
+        out[start:stop] = w32.to(w.dtype)
+    return out.reshape(w.shape)

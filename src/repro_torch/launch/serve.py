@@ -19,7 +19,9 @@ The twin of the reference's ``launch/serve.py``, flag for flag, plus
       python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
           --online-trim --drift 0.002 --requests 128
 
-Only the dense GQA family is ported (ROADMAP A14 for the others).
+Any ported architecture but the stub-frontend ones (vlm, audio), which
+the reference's launcher refuses too: they take embeddings, not a token
+prompt.  The recurrent families raise (ROADMAP A14b).
 """
 from __future__ import annotations
 

@@ -2,11 +2,15 @@
 qwen3-14b --smoke --steps 200 [--device cpu]``.
 
 The twin of the reference's ``launch/train.py``, flag for flag, plus
-``--device`` (the CUDA card unless ``--device cpu``): trains the
-architecture with MGD (or the backprop baseline) on the synthetic LM
-stream (``lm_sampler``).  ``--smoke`` selects the reduced config.
-Checkpoints are atomic and resumable (``--ckpt-dir``); a killed run
-restarted with the same flags reproduces the exact trajectory.
+``--device`` (the CUDA card unless ``--device cpu``): trains any ported
+architecture (``repro_torch.configs.PORTED``) with MGD (or the backprop
+baseline) on the synthetic LM stream (``lm_sampler``).  ``--smoke``
+selects the reduced config.  An audio model with codebooks (musicgen)
+reads ``n_codebooks`` streams of that sampler as its tokens [B, nq, S]
+and labels [B, S, nq]; the reference's launcher passes such a model
+[B, S] tokens, which it cannot embed.  Checkpoints are atomic and
+resumable (``--ckpt-dir``); a killed run restarted with the same flags
+reproduces the exact trajectory.
 """
 from __future__ import annotations
 
@@ -20,6 +24,20 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model_init, model_loss
 from repro_torch.training.train_loop import (TrainLoopConfig, train_backprop,
                                              train_mgd)
+
+
+def codebook_sampler(sample_fn, n_codebooks: int):
+    """Batches of ``n_codebooks`` rows of ``sample_fn``'s [B·nq, S] stream
+    as codebook tokens [B, nq, S] and labels [B, S, nq]."""
+
+    def sample(i):
+        batch = sample_fn(i)
+        bq, s = batch["tokens"].shape
+        shape = (bq // n_codebooks, n_codebooks, s)
+        return {"tokens": batch["tokens"].reshape(shape),
+                "labels": batch["labels"].reshape(shape).transpose(1, 2)}
+
+    return sample
 
 
 def main(argv=None):
@@ -53,8 +71,10 @@ def main(argv=None):
     print(f"[train] {cfg.name} ({'smoke' if args.smoke else 'full'}): "
           f"{n/1e6:.2f}M params, algo={args.algo}, {dev}")
 
-    sample_fn = lm_sampler(args.batch, args.seq, cfg.vocab, seed=args.seed,
-                           device=dev)
+    sample_fn = lm_sampler(args.batch * max(cfg.n_codebooks, 1), args.seq,
+                           cfg.vocab, seed=args.seed, device=dev)
+    if cfg.n_codebooks:
+        sample_fn = codebook_sampler(sample_fn, cfg.n_codebooks)
 
     def loss_fn(p, b):
         return model_loss(p, cfg, b)

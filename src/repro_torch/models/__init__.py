@@ -1,4 +1,7 @@
-"""Models: the paper's sigmoid MLPs and CNNs, and the dense GQA decoder."""
+"""Models: the paper's sigmoid MLPs and CNNs, and the decoder transformers
+of the attention families (dense GQA, VLM, audio, MoE, MLA).  The MoE and
+MLA building blocks live in ``models.moe`` and ``models.mla``, where the
+reference keeps them."""
 from .config import ArchConfig
 from .simple import (cifar_cnn_apply, cifar_cnn_init, cnn_apply, cnn_init,
                      fashion_cnn_apply, fashion_cnn_init, linear_apply,

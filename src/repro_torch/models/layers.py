@@ -190,6 +190,20 @@ def _same_pads(size: int, k: int, stride: int):
 
 
 @contextlib.contextmanager
+def full_f32_matmul():
+    """cuBLAS's TF32 off for the enclosed f32 matmuls and einsums, the
+    caller's setting back after them (the MoE router and the MLA decode's
+    f32 einsums, which the reference computes in full f32)."""
+    mm = torch.backends.cuda.matmul
+    tf32 = mm.allow_tf32
+    mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
 def _cudnn_full_f32():
     """cuDNN's TF32 off for the enclosed calls, the caller's setting back
     after them."""

@@ -1,0 +1,178 @@
+"""Mixture-of-Experts with grouped one-hot dispatch.
+
+PyTorch counterpart of ``repro.models.moe``.  Tokens are split into
+groups of ``group_size``; each group routes its tokens to their top-k
+experts under a per-group capacity C = ceil(group·k/E·cf), rounded up to
+a multiple of 4.  The dispatch and combine tensors are [G, Sg, E, C].  A
+token's capacity position within its expert counts the routings before
+it in (s, k) order; routings past C are dropped (combine weight 0).  The
+top-k gates are renormalized over the selected experts (DeepSeek-V3); an
+optional shared expert runs densely on every token.
+
+The reference computes all of this in plain ``jnp`` (no Pallas kernel),
+so the port does it in plain PyTorch: the router in f32 with TF32 off,
+ties of the top-k going to the lower expert index as in
+``jax.lax.top_k``, and the three expert einsums in the model's dtype with
+SiLU in f32.
+
+``DropRecorder`` counts, while it is entered, the routings ``moe_apply``
+makes and the ones capacity drops (device tensors, read once at the end).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.utils import f32
+from .layers import dense, dense_init, full_f32_matmul, glu_mlp, glu_mlp_init
+
+_RECORDERS = []
+
+
+class DropRecorder:
+    """Inside ``with DropRecorder() as rec:``, every ``moe_apply`` call
+    appends its routings (a host int) and the ones it kept (a device
+    tensor) to ``rec.calls``; ``totals()`` reads them back as host ints."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        _RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDERS.remove(self)
+        return False
+
+    def totals(self):
+        """(routings, dropped) summed over the recorded calls."""
+        routed = sum(r for r, _ in self.calls)
+        return routed, routed - sum(int(kept) for _, kept in self.calls)
+
+
+def moe_init(gen: torch.Generator, cfg, dtype, device=None):
+    """f32 router [d, E], expert banks gate/up [E, d, f] and down [E, f, d]
+    in ``dtype``, and the shared GLU expert when ``cfg.n_shared_experts``.
+    A bank is drawn one expert at a time, so the f32 draw never holds a
+    whole bank."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    scale = 1.0 / math.sqrt(d)
+
+    def bank(d_in, d_out):
+        out = torch.empty((e, d_in, d_out), dtype=dtype, device=device)
+        for i in range(e):
+            out[i] = (torch.randn((d_in, d_out), generator=gen,
+                                  dtype=torch.float32, device=gen.device)
+                      * scale).to(dtype)
+        return out
+
+    p = {
+        "router": dense_init(gen, d, e, dtype=torch.float32, device=device),
+        "gate": bank(d, f),
+        "up": bank(d, f),
+        "down": bank(f, d),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = glu_mlp_init(gen, d, f * cfg.n_shared_experts, dtype,
+                                   device)
+    return p
+
+
+def capacity(group_size: int, top_k: int, n_experts: int,
+             factor: float = 1.25, multiple: int = 4) -> int:
+    c = math.ceil(group_size * top_k / n_experts * factor)
+    return max(multiple, ((c + multiple - 1) // multiple) * multiple)
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """The k largest of the last dim, descending, equal values in index
+    order (``jax.lax.top_k``'s ties; ``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _gates(probs: torch.Tensor, k: int):
+    """(top-k gates renormalized over the selected experts, expert ids)."""
+    gate_vals, expert_idx = top_k(probs, k)
+    return gate_vals / (gate_vals.sum(-1, keepdim=True) + f32(1e-9)), \
+        expert_idx
+
+
+def router_probs(p, xg):
+    """Softmax over experts of the f32 router logits, TF32 off."""
+    with full_f32_matmul():
+        logits = dense(p["router"], xg.float())
+    return torch.softmax(logits, dim=-1)
+
+
+def route(probs: torch.Tensor, k: int, c: int):
+    """Routing of router probabilities [G, Sg, E] at capacity ``c``:
+    (gates [G, Sg, K] renormalized, expert ids [G, Sg, K], combine
+    [G, Sg, E, C] f32, keep [G, Sg, K, E])."""
+    g, gs, e = probs.shape
+    gate_vals, expert_idx = _gates(probs, k)
+    onehot = F.one_hot(expert_idx, e).float()                 # [G,Sg,K,E]
+    # position of each (token, k) routing within its expert, in (s, k) order
+    flat = onehot.reshape(g, gs * k, e)
+    pos = ((torch.cumsum(flat, dim=1) - f32(1.0)) * flat).reshape(
+        g, gs, k, e)
+    keep = (pos < c) & (onehot > 0)
+    slot = ((pos * onehot).sum(-1)[..., None]
+            == torch.arange(c, dtype=torch.float32,
+                            device=probs.device)).float()     # [G,Sg,K,C]
+    # combine[g,s,e,c] = Σ_k gate·onehot·keep·slot
+    combine = torch.einsum("gske,gskc->gsec",
+                           onehot * keep * gate_vals[..., None], slot)
+    return gate_vals, expert_idx, combine, keep
+
+
+def moe_apply(p, x, cfg, *, group_size: int = 256,
+              capacity_factor: float = 1.25):
+    """x: [B, S, d] → [B, S, d]."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    t = b * s
+    gs = min(group_size, t)
+    if t % gs:
+        raise ValueError(f"{t} tokens do not split into MoE groups of {gs}")
+    g = t // gs
+    c = capacity(gs, k, e, capacity_factor)
+
+    xg = x.reshape(g, gs, d)
+    _, _, combine, keep = route(router_probs(p, xg), k, c)
+    for rec in _RECORDERS:
+        rec.calls.append((g * gs * k, keep.sum()))
+    dispatch = (combine > 0).to(x.dtype)
+
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["gate"])
+               .float()).to(x.dtype)
+    h = h * torch.einsum("egcd,edf->egcf", expert_in, p["up"])
+    expert_out = torch.einsum("egcf,efd->egcd", h, p["down"])
+    y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+    y = y.reshape(b, s, d)
+
+    if "shared" in p:
+        y = y + glu_mlp(p["shared"], x)
+    return y
+
+
+def moe_apply_dense_ref(p, x, cfg):
+    """O(E·T) dense reference: every expert sees every token; the
+    dispatch oracle of the tests (no capacity drops)."""
+    e, k = cfg.n_experts, cfg.n_experts_active
+    gate_vals, expert_idx = _gates(router_probs(p, x), k)
+    dense_w = torch.sum(F.one_hot(expert_idx, e).float()
+                        * gate_vals[..., None], dim=-2)       # [B,S,E]
+    outs = []
+    for i in range(e):
+        h = F.silu((x @ p["gate"][i]).float()).to(x.dtype)
+        h = h * (x @ p["up"][i])
+        outs.append(h @ p["down"][i])
+    y = torch.einsum("bse,ebsd->bsd", dense_w.to(x.dtype), torch.stack(outs))
+    if "shared" in p:
+        y = y + glu_mlp(p["shared"], x)
+    return y

@@ -1,26 +1,40 @@
-"""Dense GQA decoder transformer, plain forward and fused MGD probe path.
+"""Decoder transformers of the attention families: plain forward, fused
+MGD probe path, and serving.
 
-PyTorch counterpart of ``repro.models.transformer`` for the ``dense``
-family (Qwen3-style: GQA, optional qk-norm and QKV bias, SwiGLU MLP,
-RMSNorm, RoPE or M-RoPE):
+PyTorch counterpart of ``repro.models.transformer`` for the ``dense``,
+``vlm``, ``audio`` and ``moe`` families: GQA attention (optional qk-norm
+and QKV bias, RoPE or M-RoPE) or MLA (DeepSeek-V3), a SwiGLU MLP or a
+mixture of experts, RMSNorm:
 
     model_init(cfg, seed, device=...)     → params (stacked-layer pytree)
-    model_forward(params, cfg, batch)     → logits [B, S, V]
+    model_forward(params, cfg, batch)     → logits [B, S, V] ([B, S, nq, V]
+                                            with codebooks)
     model_loss(params, cfg, batch)        → scalar xent (MGD's loss_fn)
     make_transformer_probe_fn(cfg)        → probe_fn for the fused path
-    model_prefill(params, cfg, batch, L)  → (logits, KV cache of length L)
+    model_prefill(params, cfg, batch, L)  → (logits, cache of length L)
     model_decode(params, cfg, tokens, c)  → (next logits [B, V], cache)
 
-Layers are stacked on a leading L dim, as in the reference, so leaf ids
-and sign indices match it; the reference's ``lax.scan`` over layers is a
-Python loop here, with a host-int layer index.  Sharding annotations are
-dropped (one card).  Other families (ssm, hybrid, MoE, MLA), stub-frontend
-inputs (``embeds``, codebooks) raise and name ROADMAP A14, in the serving
-entry points too.
+A batch holds ``tokens`` [B, S] (with ``n_codebooks``: [B, nq, S], the
+codebook embeddings summed), or stub-frontend ``embeds`` [B, S, d] in
+place of the embedding, and optional ``positions`` ([B, S, 3] for
+M-RoPE).  Layers are stacked on a leading L dim, as in the reference, so
+leaf ids and sign indices match it; the reference's ``lax.scan`` over
+layers is a Python loop here, with a host-int layer index.  Sharding
+annotations are dropped: ``fsdp`` and ``seq_parallel`` only place
+tensors on a mesh, and the port runs on one card, as the reference does
+on a one-device mesh.  The recurrent families (ssm, hybrid) raise and
+name ROADMAP A14b.
 
-The KV cache keeps the reference's layout, ``{"k", "v": [L, B, S_max,
-KVH, dh], "length": int32}``.  Where the reference donates the cache into
-a jitted decode, ``model_decode`` writes the new token's K and V into the
+Dense GQA decoders (incl. the vlm/audio backbones) probe through the
+perturbed-matmul kernels (``supports_fused_probe``); MoE and MLA models
+probe by materializing θ ± θ̃ leaf by leaf (``perturbations.
+perturbed_tree``), as the reference does, and their update still runs in
+the window-update kernel.
+
+The cache keeps the reference's layout: ``{"k", "v": [L, B, S_max, KVH,
+dh]}``, or for MLA ``{"c_kv": [L, B, S_max, r], "k_rope": [L, B, S_max,
+dr]}``, and ``"length"``.  Where the reference donates the cache into a
+jitted decode, ``model_decode`` writes the new token's entries into the
 preallocated cache in place, at ``length − 1``.  ``length`` is a 0-d int32
 tensor kept on the host, so a decode step reads it without waiting for
 the card.
@@ -31,6 +45,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import perturbations as pert
 from repro_torch.core.perturbations import leaf_seed
 from repro_torch.core.utils import (leaf_id_tree, tree_flatten, tree_map,
                                     tree_unflatten)
@@ -40,6 +55,8 @@ from .config import ArchConfig
 from .layers import (dense, dense_init, embed, embedding_init, glu_mlp,
                      glu_mlp_init, pdense, pembed, pleaf, prmsnorm, rmsnorm,
                      rmsnorm_init)
+from .mla import mla_attention, mla_cache_update, mla_decode, mla_init
+from .moe import moe_apply, moe_init
 from .rope import apply_mrope, apply_rope
 
 _INIT_TAG = 0x7F4A
@@ -47,28 +64,18 @@ _EMBED_LAYER = 0xFFFF   # generator key of the embedding/head parameters
 
 
 def supports_fused_probe(cfg: ArchConfig) -> bool:
-    """Dense GQA decoders have the fully fused probe path; they are the
-    only family the port runs."""
+    """Dense GQA decoders (incl. the vlm/audio stub frontends) have the
+    fully fused probe path; MoE and MLA models materialize θ ± θ̃."""
     return (cfg.family in ("dense", "vlm", "audio")
             and not cfg.use_mla and not cfg.n_experts)
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if not supports_fused_probe(cfg):
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family"
-            f"{' with MLA' if cfg.use_mla else ''}"
-            f"{' with MoE' if cfg.n_experts else ''} is not ported to "
-            f"repro_torch yet (ROADMAP A14); the port runs dense GQA "
-            f"decoders")
-    if cfg.n_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name}: codebook token inputs are not ported yet "
-            f"(ROADMAP A14)")
-    if cfg.fsdp or cfg.seq_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: fsdp/seq_parallel shard over a mesh; the port runs "
-            f"on one card (ROADMAP A15)")
+            f"{cfg.name}: the recurrent {cfg.family!r} family (RWKV-6, "
+            f"Mamba-2) is not ported to repro_torch yet (ROADMAP A14b); the "
+            f"port runs the attention families")
 
 
 # ---------------------------------------------------------------------------
@@ -144,31 +151,58 @@ def attn_decode_step(p, x1, positions, kcache, vcache, length: int,
 
 def block_init(gen, cfg: ArchConfig, dtype, device=None):
     _check_family(cfg)
-    return {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
-            "ln2": rmsnorm_init(cfg.d_model, dtype, device),
-            "attn": attn_init(gen, cfg, dtype, device),
-            "mlp": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
+         "ln2": rmsnorm_init(cfg.d_model, dtype, device)}
+    if cfg.use_mla:
+        p["attn"] = mla_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = attn_init(gen, cfg, dtype, device)
+    if cfg.n_experts:
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _mlp_part(p, x, cfg: ArchConfig):
+    if cfg.n_experts:
+        return moe_apply(p["moe"], x, cfg, group_size=cfg.moe_group_size,
+                         capacity_factor=cfg.moe_capacity_factor)
+    return glu_mlp(p["mlp"], x)
 
 
 def block_apply(p, x, positions, cfg: ArchConfig):
-    """Pre-norm residual block.  Returns (x', (k, v))."""
-    att, cache = attn_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                            positions, cfg)
+    """Pre-norm residual block.  Returns (x', cache payload): (k, v), or
+    for MLA (c_kv, k_rope)."""
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.use_mla:
+        att, cache = mla_attention(
+            p["attn"], xn, positions, cfg, q_block=cfg.attn_q_block,
+            kv_block=cfg.attn_kv_block, impl=cfg.attn_impl)
+    else:
+        att, cache = attn_apply(p["attn"], xn, positions, cfg)
     x = x + att
-    x = x + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    x = x + _mlp_part(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x, cache
 
 
 def block_decode(p, x1, positions, layer_cache, length: int,
                  cfg: ArchConfig):
-    """One layer of one decode step.  Returns (x1', (kcache, vcache))."""
-    kc, vc = layer_cache
-    att, kc, vc = attn_decode_step(
-        p["attn"], rmsnorm(p["ln1"], x1, cfg.norm_eps), positions, kc, vc,
-        length, cfg)
+    """One layer of one decode step; the layer's caches (kcache, vcache)
+    or, for MLA, (c_kv, k_rope) are written in place.  Returns (x1',
+    layer caches)."""
+    xn = rmsnorm(p["ln1"], x1, cfg.norm_eps)
+    if cfg.use_mla:
+        cache = mla_cache_update(p["attn"], xn, layer_cache, length, cfg)
+        att = mla_decode(p["attn"], xn, cache, length, cfg)
+    else:
+        kc, vc = layer_cache
+        att, kc, vc = attn_decode_step(p["attn"], xn, positions, kc, vc,
+                                       length, cfg)
+        cache = (kc, vc)
     x1 = x1 + att
-    x1 = x1 + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x1, cfg.norm_eps))
-    return x1, (kc, vc)
+    x1 = x1 + _mlp_part(p, rmsnorm(p["ln2"], x1, cfg.norm_eps), cfg)
+    return x1, cache
 
 
 # ---------------------------------------------------------------------------
@@ -177,27 +211,44 @@ def block_decode(p, x1, positions, layer_cache, length: int,
 
 
 def _embed_init(gen, cfg: ArchConfig, dtype, device=None):
-    p = {"tok": embedding_init(gen, cfg.vocab, cfg.d_model, dtype, device),
+    n_tables = max(cfg.n_codebooks, 1)
+    p = {"tok": embedding_init(gen, cfg.vocab * n_tables, cfg.d_model, dtype,
+                               device),
          "ln_f": rmsnorm_init(cfg.d_model, dtype, device)}
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype=dtype,
-                               device=device)
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab * n_tables,
+                               dtype=dtype, device=device)
     return p
 
 
+def _codebook_ids(cfg: ArchConfig, tokens):
+    """Codebook tokens [B, nq, ...] → rows of the stacked tables: codebook
+    i reads table slice i."""
+    nq = tokens.shape[1]
+    offs = torch.arange(nq, dtype=tokens.dtype, device=tokens.device) \
+        * cfg.vocab
+    return tokens + offs.reshape((1, nq) + (1,) * (tokens.dim() - 2))
+
+
 def _embed_tokens(p, cfg: ArchConfig, batch):
-    """Tokens → [B, S, d]."""
-    if "embeds" in batch:
-        raise NotImplementedError("stub-frontend embeds inputs are not "
-                                  "ported yet (ROADMAP A14)")
+    """Tokens or stub-frontend embeddings → [B, S, d]."""
     _check_family(cfg)
+    if "embeds" in batch:
+        return batch["embeds"]
+    if cfg.n_codebooks:
+        return embed(p["tok"], _codebook_ids(cfg, batch["tokens"])).sum(1)
     return embed(p["tok"], batch["tokens"])
 
 
 def _logits(p, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
-        return x @ p["tok"]["table"].T
-    return dense(p["head"], x)
+        logits = x @ p["tok"]["table"].T
+    else:
+        logits = dense(p["head"], x)
+    if cfg.n_codebooks:
+        b, s, _ = logits.shape
+        logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab)
+    return logits
 
 
 def _positions(cfg: ArchConfig, batch, s, b, device=None):
@@ -236,6 +287,11 @@ def model_init(cfg: ArchConfig, seed: int, *, device=None):
                              dev)}
     leaves, treedef = tree_flatten(
         block_init(_generator(seed, 0, dev), cfg, dtype, dev))
+    if cfg.n_layers == 1:
+        # the layer's leaves, viewed [1, ...]: one copy of a layer that may
+        # be half the card (DeepSeek-V3's 23 GB)
+        params["layers"] = tree_unflatten(treedef, [a[None] for a in leaves])
+        return params
     stacked = [torch.empty((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
                            device=dev) for a in leaves]
     for layer in range(cfg.n_layers):
@@ -255,23 +311,23 @@ def _layer_params(layers, layer: int):
 
 def model_forward(params, cfg: ArchConfig, batch, *, return_state=False):
     """Full-sequence forward → logits [B, S, V].  With ``return_state``
-    also the per-layer (k, v), each stacked [L, B, S, KVH, dh] (the
+    also the per-layer cache payloads stacked on L: (k, v) [L, B, S, KVH,
+    dh], or for MLA (c_kv [L, B, S, r], k_rope [L, B, S, dr]) (the
     prefill path)."""
     x = _embed_tokens(params["embed"], cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, batch, s, b, x.device)
-    kvs = []
+    states = []
     for layer in range(cfg.n_layers):
-        x, kv = block_apply(_layer_params(params["layers"], layer), x,
-                            positions, cfg)
+        x, state = block_apply(_layer_params(params["layers"], layer), x,
+                               positions, cfg)
         if return_state:
-            kvs.append(kv)
-        del kv
+            states.append(state)
+        del state
     x = rmsnorm(params["embed"]["ln_f"], x, cfg.norm_eps)
     logits = _logits(params["embed"], cfg, x)
     if return_state:
-        return logits, (torch.stack([k for k, _ in kvs]),
-                        torch.stack([v for _, v in kvs]))
+        return logits, tuple(torch.stack(parts) for parts in zip(*states))
     return logits
 
 
@@ -352,20 +408,37 @@ def _pblock_apply(p, xs, positions, cfg: ArchConfig, ids, probe, layer):
 
 def model_forward_perturbed(params, cfg: ArchConfig, batch, probe):
     """Per-sign perturbed logits, θ̃ fused into the weight matmuls: a tuple
-    with one logits tensor per ``probe.ctx.signs`` entry."""
-    _check_family(cfg)
-    if "embeds" in batch:
-        raise NotImplementedError("stub-frontend embeds inputs are not "
-                                  "ported yet (ROADMAP A14)")
+    with one logits tensor per ``probe.ctx.signs`` entry.
+
+    Stub-frontend ``embeds`` enter every stream as they are: the
+    reference forms the perturbed table there too and reads nothing of
+    it (XLA drops the unread work), so the port does not form it.
+    Codebook tokens gather their rows of the perturbed stacked table and
+    sum them, per stream."""
+    if not supports_fused_probe(cfg):
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family"
+                         f"{' with MLA' if cfg.use_mla else ''}"
+                         f"{' with MoE' if cfg.n_experts else ''} has no "
+                         f"fused probe path (model_probe_costs "
+                         f"materializes θ ± θ̃ for it)")
     ids = leaf_id_tree(params)
     emb, eids = params["embed"], ids["embed"]
-    tokens = batch["tokens"]
+    tables = None
     if cfg.tie_embeddings:
         # the head reads the whole perturbed table, so it is materialized
         tables = pleaf(emb["tok"]["table"], eids["tok"]["table"], probe)
-        xs = tuple(t[tokens.long()] for t in tables)
+    if "embeds" in batch:
+        xs = tuple(batch["embeds"] for _ in probe.ctx.signs)
     else:
-        xs = pembed(emb["tok"], tokens, eids["tok"], probe)
+        tokens = batch["tokens"]
+        if cfg.n_codebooks:
+            tokens = _codebook_ids(cfg, tokens)
+        if tables is not None:
+            xs = tuple(t[tokens.long()] for t in tables)
+        else:
+            xs = pembed(emb["tok"], tokens, eids["tok"], probe)
+        if cfg.n_codebooks:
+            xs = tuple(x.sum(1) for x in xs)
     b, s, _ = xs[0].shape
     positions = _positions(cfg, batch, s, b, xs[0].device)
     for layer in range(cfg.n_layers):
@@ -373,19 +446,36 @@ def model_forward_perturbed(params, cfg: ArchConfig, batch, probe):
                            positions, cfg, ids["layers"], probe, layer)
     xs = prmsnorm(emb["ln_f"], xs, eids["ln_f"], probe, eps=cfg.norm_eps)
     if cfg.tie_embeddings:
-        return tuple(x @ t.T for x, t in zip(xs, tables))
-    return pdense(emb["head"], xs, eids["head"], probe)
+        logits = tuple(x @ t.T for x, t in zip(xs, tables))
+    else:
+        logits = pdense(emb["head"], xs, eids["head"], probe)
+    if cfg.n_codebooks:
+        logits = tuple(lg.reshape(b, s, cfg.n_codebooks, cfg.vocab)
+                       for lg in logits)
+    return logits
 
 
 def model_probe_costs(params, cfg: ArchConfig, batch, probe):
     """probe_fn for ``MGDConfig(fused=True)``: [n_signs] xent costs.
 
-    Fused for every family the port runs.  The reference's branch that
-    materializes θ̃ per sign serves the families that raise here (A14).
+    Fused for dense GQA decoders.  MoE and MLA models materialize θ ± θ̃
+    for each sign in the unfused optimizer's float order
+    (``tree_add``/``tree_axpy``), one perturbed tree at a time and each
+    formed in bounded chunks (``perturbations.perturbed_tree``), then take
+    ``model_loss``; their update still runs in the window-update kernel.
     """
-    logits = model_forward_perturbed(params, cfg, batch, probe)
-    return torch.stack(
-        [_loss_from_logits(lg, batch["labels"]) for lg in logits])
+    if supports_fused_probe(cfg):
+        logits = model_forward_perturbed(params, cfg, batch, probe)
+        return torch.stack(
+            [_loss_from_logits(lg, batch["labels"]) for lg in logits])
+    costs = []
+    for sign in probe.ctx.signs:
+        p_s = pert.perturbed_tree(
+            params, step=probe.step, seed=probe.seed,
+            dtheta=probe.ctx.dtheta, tau_p=probe.ctx.tau_p, sign=sign)
+        costs.append(model_loss(p_s, cfg, batch))
+        del p_s
+    return torch.stack(costs)
 
 
 def make_transformer_probe_fn(cfg: ArchConfig):
@@ -402,56 +492,75 @@ def make_transformer_probe_fn(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _cache_keys(cfg: ArchConfig):
+    return ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+
+
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
                device=None):
-    """An empty KV cache on ``device`` (the card unless ``device="cpu"``):
-    ``{"k", "v": [L, B, max_len, KVH, dh]`` zeros in the model's dtype,
-    ``"length"``: a 0-d int32 host tensor}."""
+    """An empty cache on ``device`` (the card unless ``device="cpu"``),
+    zeros in the model's dtype: ``{"k", "v": [L, B, max_len, KVH, dh]}``,
+    or for MLA ``{"c_kv": [L, B, max_len, r], "k_rope": [L, B, max_len,
+    dr]}``, with ``"length"``: a 0-d int32 host tensor."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "length": torch.zeros((), dtype=torch.int32)}
+    lead = (cfg.n_layers, batch_size, max_len)
+    if cfg.use_mla:
+        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_head_dim,))
+    else:
+        shapes = (lead + (cfg.kv_heads, cfg.head_dim),) * 2
+    cache = {key: torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+             for key, shape in zip(_cache_keys(cfg), shapes)}
+    cache["length"] = torch.zeros((), dtype=torch.int32)
+    return cache
 
 
 def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
-    """Run the prompt; returns (full-seq logits, ready-to-decode cache)
-    on the tokens' device."""
-    logits, (k, v) = model_forward(params, cfg, batch, return_state=True)
-    b, s = batch["tokens"].shape[0], batch["tokens"].shape[-1]
+    """Run the prompt (``tokens``, or stub-frontend ``embeds``); returns
+    (full-seq logits, ready-to-decode cache) on the logits' device."""
+    logits, states = model_forward(params, cfg, batch, return_state=True)
+    if "tokens" in batch:
+        b, s = batch["tokens"].shape[0], batch["tokens"].shape[-1]
+    else:
+        b, s = batch["embeds"].shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = init_cache(cfg, b, max_len, device=logits.device)
-    cache["k"][:, :, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :, :s] = v.to(cache["v"].dtype)
+    for key, state in zip(_cache_keys(cfg), states):
+        cache[key][:, :, :s] = state.to(cache[key].dtype)
     cache["length"] = torch.tensor(s, dtype=torch.int32)
     return logits, cache
 
 
 def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
-    """One decode step.  tokens: [B] int.  Returns (logits [B, V], cache):
-    the cache's K and V are written in place (the caller's dict keeps
-    its old ``length``; use the returned one)."""
-    if embeds is not None:
-        raise NotImplementedError("stub-frontend embeds inputs are not "
-                                  "ported yet (ROADMAP A14)")
+    """One decode step.  tokens: [B] int ([B, nq] with codebooks), or
+    stub-frontend ``embeds`` [B, 1, d].  Returns (logits [B, V] ([B, nq,
+    V] with codebooks), cache): the cache is written in place (the
+    caller's dict keeps its old ``length``; use the returned one)."""
     _check_family(cfg)
-    x1 = embed(params["embed"]["tok"], tokens)[:, None, :]
+    if embeds is not None:
+        x1 = embeds
+    elif cfg.n_codebooks:
+        x1 = embed(params["embed"]["tok"],
+                   _codebook_ids(cfg, tokens)).sum(1)[:, None, :]
+    else:
+        x1 = embed(params["embed"]["tok"], tokens)[:, None, :]
     b = x1.shape[0]
+    keys = _cache_keys(cfg)
     length = int(cache["length"]) + 1
-    if length > cache["k"].shape[2]:
-        raise ValueError(f"KV cache full: decoding position {length - 1} "
-                         f"of a cache of {cache['k'].shape[2]}")
+    if length > cache[keys[0]].shape[2]:
+        raise ValueError(f"cache full: decoding position {length - 1} of a "
+                         f"cache of {cache[keys[0]].shape[2]}")
     pos = torch.full((b, 1), length - 1, dtype=torch.int32,
                      device=x1.device)
     if cfg.mrope_sections is not None:
         pos = pos[..., None].expand(b, 1, 3)
     for layer in range(cfg.n_layers):
         x1, _ = block_decode(_layer_params(params["layers"], layer), x1, pos,
-                             (cache["k"][layer], cache["v"][layer]), length,
-                             cfg)
+                             tuple(cache[key][layer] for key in keys),
+                             length, cfg)
     x1 = rmsnorm(params["embed"]["ln_f"], x1, cfg.norm_eps)
     logits = _logits(params["embed"], cfg, x1)[:, 0]
-    return logits, {"k": cache["k"], "v": cache["v"],
-                    "length": torch.tensor(length, dtype=torch.int32)}
+    new = {key: cache[key] for key in keys}
+    new["length"] = torch.tensor(length, dtype=torch.int32)
+    return logits, new

@@ -227,16 +227,22 @@ def test_gumbel_and_categorical_match_jax(seed):
 
 
 def test_unported_families_raise_a14():
+    """The recurrent families raise and name A14b; stub-frontend
+    ``embeds`` prefill and decode run, and equal the token path fed the
+    same embedding rows."""
     _, tcfg = _cfgs()
-    for kw in ({"family": "ssm"}, {"use_mla": True}, {"n_experts": 4},
-               {"family": "hybrid"}, {"n_codebooks": 2}):
-        with pytest.raises(NotImplementedError, match="A14"):
+    for kw in ({"family": "ssm"}, {"family": "hybrid"}):
+        with pytest.raises(NotImplementedError, match="A14b"):
             tt.init_cache(tcfg.replace(**kw), 1, 8, device="cpu")
     params = rt.model_init(tcfg, 0, device="cpu")
-    cache = tt.init_cache(tcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tt.model_decode(params, tcfg, None, cache,
-                        embeds=torch.zeros((1, 1, tcfg.d_model)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tt.model_prefill(params, tcfg, {"embeds": torch.zeros((1, 4, 64))},
-                         8)
+    toks = torch.tensor([[3, 17, 5, 60, 9]])
+    emb = params["embed"]["tok"]["table"][toks.long()]
+    pf_t, cache_t = tt.model_prefill(params, tcfg, {"tokens": toks[:, :4]},
+                                     8)
+    pf_e, cache_e = tt.model_prefill(params, tcfg, {"embeds": emb[:, :4]},
+                                     8)
+    assert torch.equal(pf_e, pf_t) and int(cache_e["length"]) == 4
+    lg_t, _ = tt.model_decode(params, tcfg, toks[:, 4], cache_t)
+    lg_e, cache_e = tt.model_decode(params, tcfg, None, cache_e,
+                                    embeds=emb[:, 4:5])
+    assert torch.equal(lg_e, lg_t) and int(cache_e["length"]) == 5

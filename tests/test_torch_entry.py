@@ -330,3 +330,44 @@ def test_examples_run_on_cpu(name, argv, tmp_path, capsys, monkeypatch):
     result = mod.main(argv + ["--device", "cpu"])
     assert result is not None
     assert capsys.readouterr().out.strip()
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b",
+                                  "qwen2-vl-2b", "musicgen-medium"])
+def test_launch_train_takes_the_attention_families(arch):
+    """``launch/train.py --smoke --device cpu`` on MoE, MLA + MoE, the VLM
+    (its token path, M-RoPE positions from text) and the audio model
+    (codebook tokens [B, nq, S], labels [B, S, nq])."""
+    from repro_torch.launch import train as ltrain
+
+    res = ltrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--seq", "16", "--steps", "2",
+                       "--chunk", "2"])
+    assert res.steps_done == 2
+    assert np.isfinite([h[1]["cost"] for h in res.history]).all()
+    with pytest.raises(NotImplementedError, match="A14b"):
+        ltrain.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu"])
+
+
+def test_launch_train_codebook_batches():
+    from repro_torch.launch.train import codebook_sampler
+
+    sample = rt.lm_sampler(6, 5, 64, seed=0, device="cpu")
+    batch = codebook_sampler(sample, 3)(1)
+    flat = sample(1)
+    assert tuple(batch["tokens"].shape) == (2, 3, 5)
+    assert tuple(batch["labels"].shape) == (2, 5, 3)
+    assert torch.equal(batch["tokens"][1, 2], flat["tokens"][5])
+    assert torch.equal(batch["labels"][1, :, 2], flat["labels"][5])
+
+
+def test_launch_serve_generates_moe_and_mla(capsys):
+    from repro_torch.launch import serve as lserve
+
+    for arch in ("llama4-scout-17b-a16e", "deepseek-v3-671b"):
+        out = lserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--prompt-len", "8", "--max-new", "4"])
+        assert tuple(out.shape) == (4, 4) and out.dtype == torch.int32
+    assert "tok/s, cpu" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="stub-frontend"):
+        lserve.main(["--arch", "qwen2-vl-2b", "--smoke", "--device", "cpu"])

@@ -877,3 +877,85 @@ def test_two_thread_service_on_card(cuda_device):
     assert all(np.isfinite(r.output).all() and r.output.shape == (4,)
                for r in outs)
     assert torn_swap_hammer(512, cuda_device) == 0
+
+
+# --- the attention families on the card ----------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b"])
+def test_moe_mla_forward_and_decode_card_equals_cpu(cuda_device, arch):
+    """MoE (llama4-scout) and MLA + MoE (deepseek-v3) smoke configs (f32,
+    capacity factor 8: nothing drops): the full forward, prefill and
+    teacher-forced decode on the card against the CPU within 2e-5 (the
+    transformer's port tolerance; cuBLAS and the CPU's matmul sum in
+    other orders, the router and MLA einsums with TF32 off), and decode
+    against the card's own full forward below 5e-4."""
+    import repro_torch as rt
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.models import transformer as tt
+
+    cfg = rt.get_smoke_config(arch).replace(moe_capacity_factor=8.0)
+    cpu = rt.model_init(cfg, 0, device="cpu")
+    card = to_torch(to_numpy(cpu), device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    outs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda_device)):
+        t = toks.to(dev)
+        full = tt.model_forward(params, cfg, {"tokens": t})
+        pf, cache = tt.model_prefill(params, cfg, {"tokens": t[:, :16]}, 32)
+        logits = [pf]
+        for i in range(16, 32):
+            lg, cache = tt.model_decode(params, cfg, t[:, i], cache)
+            logits.append(lg[:, None])
+        dec = torch.cat(logits, dim=1)
+        assert (dec - full).abs().max().item() < 5e-4
+        outs.append((full.cpu(), dec.cpu()))
+    for a, b in zip(outs[0], outs[1]):
+        assert (a - b).abs().max().item() <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b"])
+def test_moe_mla_fused_step_card_matches_cpu(cuda_device, arch):
+    """Three fused central steps (materialized probes, the window-update
+    kernel over every matrix leaf incl. the rank-4 expert banks, one
+    launch a step for the f32 tree) on the card against the CPU's plain
+    route: C̃ within 1e-5 and params within 1e-4 (phase 9's limits for
+    f32 card-vs-plain), and no perturbed-matmul launch."""
+    import repro_torch as rt
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.models import transformer as tt
+
+    cfg = rt.get_smoke_config(arch)
+    cpu = rt.model_init(cfg, 0, device="cpu")
+    card = to_torch(to_numpy(cpu), device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (3, 2, 17),
+                         generator=torch.Generator().manual_seed(2))
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda_device)):
+        drv = rt.driver("discrete", rt.DriverConfig(
+            dtheta=1e-2, eta=1e-2, mode="central", fused=True),
+            lambda p, b: tt.model_loss(p, cfg, b),
+            probe_fn=tt.make_transformer_probe_fn(cfg), device=dev)
+        state = drv.init(params)
+        before = kernels.launch_counts()
+        cts = []
+        for i in range(3):
+            t = toks[i].to(dev)
+            params, state, aux = drv.step(
+                params, state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+            cts.append(aux["c_tilde"].item())
+        after = kernels.launch_counts()
+        if dev != "cpu":
+            assert after["mgd_update_window"] - \
+                before["mgd_update_window"] == 3
+            assert after["perturbed_matmul"] == before["perturbed_matmul"]
+            assert after["perturbed_matmul_pair"] == \
+                before["perturbed_matmul_pair"]
+        runs.append((cts, [a.cpu() for a in tree_leaves(params)]))
+    (c0, p0), (c1, p1) = runs
+    assert max(abs(a - b) for a, b in zip(c0, c1)) <= 1e-5
+    assert max((a - b).abs().max().item() for a, b in zip(p0, p1)) <= 1e-4
