@@ -108,7 +108,7 @@ Phases, each fatal on failure (nothing is caught):
    fractions of them), and a control that must miss: the MGD gate rerun
    with cuDNN's TF32 under ``conv2d``.  Printed: MGD and backprop
    steps/s, the sampler's ms a batch, held-out accuracy on 512 samples
-   after 1000 MGD and 400 backprop steps, peak memory.
+   after 500 MGD and 400 backprop steps, peak memory.
 
 11. Probe parallelism and the chip farm (4 pods or chips).  11a: NIST7x7
    49-4-4 through ``driver("probe_parallel", ..., mesh=LocalMesh(pod=4))``,
@@ -186,6 +186,33 @@ Phases, each fatal on failure (nothing is caught):
    the last position) missing it; in bf16, near-tied routings flip
    between the two.
 
+14. The recurrent families (``ssm``: RWKV-6; ``hybrid``: Mamba-2 + one
+   shared attention block), probing by materializing θ ± θ̃ (no perturbed
+   matmul) and updating through the window update, one launch a dtype.
+   14a: the smoke configs of rwkv6-7b and zamba2-7b in f32 on the card
+   against the CPU from the same params and batches (8 × 64): forward
+   logits and 2 fused central steps (C̃, params) within 2⁻¹⁶ of max|logit|
+   / of each step's cost / of their sum, printed as fractions of those
+   limits, and the same gate with TF32 allowed (cuBLAS, cuDNN) missing
+   it; the card's chunked recurrences against their own step recurrences
+   within 2e-3 (the reference's test shapes, and both models' head widths
+   at batch 8).  14b rwkv6-7b (all 32 layers, 7.54 G params) and 14c
+   zamba2-7b (all 81: 54 Mamba-2 blocks, 27 calls of the shared block;
+   4.65 G), bf16, seed 0, batch 8 × 64, Δθ = η = 1e-2, central, through
+   ``driver`` and ``make_epoch``: 3 steps whose params must equal the
+   plain update's bitwise and differ from another seed's, then 2 counted
+   steps with no B1/B2 launch and one B3 launch a dtype a step; s a step,
+   one sign's θ ± θ̃ beside its bytes bound, peak memory (under 80 GB),
+   the device's busy share of a step.  14d both served at full depth:
+   ``launch/serve.py``'s defaults, prefill and decode timed beside the
+   decode's bytes bound (weights, the recurrent state read and written,
+   zamba2's K/V), tok/s, peak memory, a bf16 decode reading (printed);
+   the f32 decode gate, teacher-forced from a 16-token prefill against the
+   full forward within 2⁻¹⁶ of max|logit|, with two controls that must
+   miss it (rwkv6: the last layer's wkv state, then its token shift,
+   zeroed after prefill; zamba2: the last Mamba layer's conv tail zeroed
+   after prefill, the shared block's K/V at the last position zeroed).
+
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
 eager torch ops.  Every phase prints its seconds.
@@ -197,6 +224,7 @@ there is no CUDA card or the repo's sources are not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -233,7 +261,7 @@ LM_SHAPES = [(LM_TOKENS, 5120, 5120), (LM_TOKENS, 5120, 1024),
              (LM_TOKENS, 5120, 151936)]
 LM_MAIN = (LM_TOKENS, 5120, 17408)          # gate/up: the kernels line
 UPDATE_SHAPES = [(128, 256, 4), (96, 80, 7), (5120, 17408, 4)]
-TRAIN_STEPS = 2000
+TRAIN_STEPS = 1000
 CT_CHECK_STEPS = 32
 CT_ATOL = 1e-5
 # matmul max error / max|y|: f32 the reference tests' 1e-4; bf16 two ulps of
@@ -1538,7 +1566,7 @@ def paper_model(torch, rt, kernels, tasks, pipeline, card, dev):
 
 CNN_BATCH = 64
 CNN_GATE_STEPS = 16
-CNN_MGD_STEPS = 1000        # of Table 2's 8000 (Fashion) / 6000 (CIFAR)
+CNN_MGD_STEPS = 500         # of Table 2's 8000 (Fashion) / 6000 (CIFAR)
 CNN_EPOCH = 250
 CNN_BP_STEPS = 400          # Table 2's backprop budget, η = 0.02
 CNN_BP_ETA = 0.02
@@ -2074,14 +2102,15 @@ def bf16_ulp(x: float) -> float:
 
 
 def decode_errors(torch, tt, params, cfg, seq, full, *, kind="tokens",
-                  shift=0, zero_last=False):
+                  shift=0, zero_last=False, after_prefill=None):
     """Teacher-forced decode from a GATE_PREFILL-position prefill: the
     largest gap to the full forward's logits at every later position.
     ``seq`` is tokens [B, S] (``kind="tokens"``), codebook tokens [B, nq,
     S] (``"codebooks"``) or stub-frontend embeddings [B, S, d]
-    (``"embeds"``).  ``shift`` makes the cache's length that much short;
-    ``zero_last`` zeroes the last written cache position before each step,
-    K and V (for MLA the latent c_kv): the two controls."""
+    (``"embeds"``).  The controls: ``shift`` makes the cache's length that
+    much short; ``zero_last`` zeroes the last written cache position
+    before each step, K and V (for MLA the latent c_kv); ``after_prefill``
+    tampers with the prefilled cache once (a recurrent state)."""
     length = seq.shape[-1] if kind == "codebooks" else seq.shape[1]
 
     def at(t0, t1):
@@ -2095,6 +2124,8 @@ def decode_errors(torch, tt, params, cfg, seq, full, *, kind="tokens",
             length)
         err = (pf.float() - full[:, :GATE_PREFILL].float()).abs().max().item()
         cache["length"] = cache["length"] - shift
+        if after_prefill is not None:
+            after_prefill(cache)
         for t in range(GATE_PREFILL, length):
             if zero_last:
                 last = int(cache["length"]) - 1
@@ -2111,31 +2142,33 @@ def decode_errors(torch, tt, params, cfg, seq, full, *, kind="tokens",
     return err
 
 
+KV_CONTROLS = {"length_short": dict(shift=1),
+               "zeroed_last": dict(zero_last=True)}
+
+
 def decode_gate(torch, tt, params, cfg, seq, full, what, *, kind="tokens",
-                rel=None):
+                rel=None, controls=KV_CONTROLS):
     """The decode gate on ``seq``: its error against the full forward
     within GATE_ULPS bf16 ulps of max|logit| (or ``rel``·max|logit|), and
-    both controls (the cache's length one short, the last written cache
-    position zeroed) missing it.  Returns the record."""
+    each control (``decode_errors`` keywords by name; by default the
+    cache's length one short and the last written cache position zeroed)
+    missing it.  Returns the record."""
     top = full.float().abs().max().item()
     limit = rel * top if rel else GATE_ULPS * bf16_ulp(top)
     err = decode_errors(torch, tt, params, cfg, seq, full, kind=kind)
-    short = decode_errors(torch, tt, params, cfg, seq, full, kind=kind,
-                          shift=1)
-    zeroed = decode_errors(torch, tt, params, cfg, seq, full, kind=kind,
-                           zero_last=True)
     rec = dict(gate_limit=limit, gate_err=err, gate_err_in_limits=err / limit,
-               control_length_short_in_limits=short / limit,
-               control_zeroed_last_in_limits=zeroed / limit,
                max_abs_logit=top, decode_positions=seq.shape[-1 if kind ==
                                                             "codebooks" else 1]
                - GATE_PREFILL)
+    for name, kw in controls.items():
+        rec[f"control_{name}_in_limits"] = decode_errors(
+            torch, tt, params, cfg, seq, full, kind=kind, **kw) / limit
     if not err <= limit:
         fail(f"{what}: decode differs from the full forward by {err} > "
              f"{limit}")
-    for control in ("control_length_short", "control_zeroed_last"):
-        if not rec[control + "_in_limits"] > 1.0:
-            fail(f"{what}: the decode gate passes its {control} ({rec})")
+    for name in controls:
+        if not rec[f"control_{name}_in_limits"] > 1.0:
+            fail(f"{what}: the decode gate passes its control_{name} ({rec})")
     return rec
 
 
@@ -2562,6 +2595,62 @@ def tree_equal(torch, a, b):
                                                  tree_leaves(b)))
 
 
+def window_gate_step(torch, kernels, drvs, params, state, batch, windows,
+                     what, watch=contextlib.nullcontext):
+    """One kernel-route step of a materializing probe (drivers ``drvs`` =
+    kernel route, plain route, kernel route with another seed), probed
+    from the same params, state and batch by all three: fails unless the
+    window-update kernel's params and C̃ equal the plain route's bitwise,
+    another seed's update differs, and the step launched ``windows``
+    window updates and no perturbed matmul.  ``watch()`` is a context
+    manager around the kernel step alone.  Returns (params, state,
+    record, what ``watch`` yielded)."""
+    drv, ref, other = drvs
+    p_plain, _, aux_plain = ref.step(params, state, batch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with watch() as seen:
+        p_k, s_k, aux = drv.step(params, state, batch)
+        ct = aux["c_tilde"].item()
+    step_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    same = tree_equal(torch, p_k, p_plain)
+    ct_plain = aux_plain["c_tilde"].item()
+    del p_plain
+    p_o, _, aux_o = other.step(params, state, batch)
+    differs = not tree_equal(torch, p_o, p_k)
+    ct_other = aux_o["c_tilde"].item()
+    del p_o
+    rec = dict(c_tilde=ct, c_tilde_plain=ct_plain, c_tilde_other_seed=ct_other,
+               cost=aux["cost"].item(), params_bitwise_plain=same,
+               control_other_seed_differs=differs, s_per_step=step_s,
+               launches=counts)
+    if ct != ct_plain or not same:
+        fail(f"{what}: the window-update kernel's params or C̃ differ from "
+             f"the plain route's ({rec})")
+    if not differs:
+        fail(f"{what}: another seed's update equals this one's")
+    if counts["perturbed_matmul"] or counts["perturbed_matmul_pair"] or \
+            counts["mgd_update_window"] != windows:
+        fail(f"{what} launched {counts}, expected no perturbed matmul and "
+             f"{windows} window updates")
+    return p_k, s_k, rec, seen
+
+
+def theta_tree_time(torch, rt, pert, params, step):
+    """Seconds of one sign's θ + θ̃ over ``params`` (the materializing
+    probe's hash passes) and its bytes bound (each element read once and
+    written once)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = pert.perturbed_tree(params, step=step, seed=0, dtheta=1e-2)
+    torch.cuda.synchronize()
+    theta_s = time.perf_counter() - t0
+    tree_bytes = 2 * sum(x.numel() * x.element_size()
+                         for x in rt.core.utils.tree_leaves(tree))
+    return theta_s, bound(0.0, tree_bytes)[0]
+
+
 def moe_decode_gate(torch, rt, tt, cfg, dev, seed, what):
     """The decode gate of an MoE model in f32 at the capacity factor at
     which nothing drops (MOE_DECODE_CF): prefill, teacher-forced decode
@@ -2606,48 +2695,20 @@ def moe_family(torch, rt, kernels, card, dev):
     bank_elems = params["layers"]["moe"]["gate"].numel()
     params_gb = torch.cuda.memory_allocated() / 1e9
     sample = family_sampler(torch, rt, cfg, dev)
-    drv = lm_driver(rt, cfg, dev, mode="central")
-    ref = lm_driver(rt, cfg, dev, "ref", mode="central")
-    other = lm_driver(rt, cfg, dev, seed=1, mode="central")
+    drvs = (lm_driver(rt, cfg, dev, mode="central"),
+            lm_driver(rt, cfg, dev, "ref", mode="central"),
+            lm_driver(rt, cfg, dev, seed=1, mode="central"))
+    drv = drvs[0]
     state = drv.init(params)
-    gate_steps, drops = [], []
+    gate_steps = []
     windows = window_launches(params)
     for n in range(MOE_GATE_STEPS):
-        batch = sample(n)
-        p_plain, _, aux_plain = ref.step(params, state, batch)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        with tmoe.DropRecorder() as rec_drops:
-            p_k, s_k, aux = drv.step(params, state, batch)
-            ct = aux["c_tilde"].item()
-        step_s = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        params, state, rec, rec_drops = window_gate_step(
+            torch, kernels, drvs, params, state, sample(n), windows,
+            f"{what}: step {n}", watch=tmoe.DropRecorder)
         routed, dropped = rec_drops.totals()
-        drops.append(dropped / routed)
-        same = tree_equal(torch, p_k, p_plain)
-        ct_plain = aux_plain["c_tilde"].item()
-        del p_plain
-        p_o, _, aux_o = other.step(params, state, batch)
-        differs = not tree_equal(torch, p_o, p_k)
-        ct_other = aux_o["c_tilde"].item()
-        del p_o
-        gate_steps.append(dict(
-            c_tilde=ct, c_tilde_plain=ct_plain, c_tilde_other_seed=ct_other,
-            cost=aux["cost"].item(), params_bitwise_plain=same,
-            control_other_seed_differs=differs, drop_share=drops[-1],
-            s_per_step=step_s, launches=counts))
-        if ct != ct_plain or not same:
-            fail(f"{what}: step {n}: the window-update kernel's params or C̃ "
-                 f"differ from the plain route's ({gate_steps[-1]})")
-        if not differs:
-            fail(f"{what}: step {n}: another seed's update equals this "
-                 f"one's")
-        if counts["perturbed_matmul"] or counts["perturbed_matmul_pair"] or \
-                counts["mgd_update_window"] != windows:
-            fail(f"{what}: step {n} launched {counts}, expected no "
-                 f"perturbed matmul and {windows} window updates")
-        params, state = p_k, s_k
-        del p_k, s_k
+        rec["drop_share"] = dropped / routed
+        gate_steps.append(rec)
     expected = dict(perturbed_matmul=0, perturbed_matmul_pair=0,
                     mgd_update_window=windows * MOE_MAIN_STEPS, mgd_update=0)
     with tmoe.DropRecorder() as rec_drops:
@@ -2663,14 +2724,8 @@ def moe_family(torch, rt, kernels, card, dev):
     n = MOE_GATE_STEPS + MOE_MAIN_STEPS
     prof = device_profile(torch, lambda: drv.step(params, state, sample(n)),
                           1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tree = pert.perturbed_tree(params, step=n, seed=0, dtheta=1e-2)
-    torch.cuda.synchronize()
-    theta_s = time.perf_counter() - t0
-    tree_bytes = 2 * sum(x.numel() * x.element_size()
-                         for x in rt.core.utils.tree_leaves(tree))
-    del tree, params, state, drv, ref, other
+    theta_s, theta_bound_ms = theta_tree_time(torch, rt, pert, params, n)
+    del params, state, drv, drvs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     dgate = moe_decode_gate(torch, rt, tt, cfg, dev, 0, f"{what} decode")
@@ -2679,7 +2734,7 @@ def moe_family(torch, rt, kernels, card, dev):
                gate_steps=gate_steps, **main,
                drop_share_main=dropped / routed, window_launches_per_step=
                windows, step_profile=prof, perturbed_tree_s=theta_s,
-               perturbed_tree_bound_ms=bound(0.0, tree_bytes)[0],
+               perturbed_tree_bound_ms=theta_bound_ms,
                peak_mem_gb=peak_train_gb, decode_gate=dgate,
                decode_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                card=card)
@@ -2837,6 +2892,449 @@ def attention_families(torch, rt, kernels, card, dev):
     return out, totals
 
 
+# -- phase 14: the recurrent families ------------------------------------------
+
+REC_ARCHS = ("rwkv6-7b", "zamba2-7b")
+REC_GATE_STEPS = 3             # B3 against its plain version, bitwise
+REC_MAIN_STEPS = 2             # counted steps, through make_epoch
+REC_PEAK_GB = 80.0
+# 14a: card against CPU in f32 (smoke configs).  Both sum each f32 product
+# in their own order (cuBLAS, the CPU's GEMM; the chunked recurrence's
+# einsums), ~2⁻²⁴·√K of a value apart a layer; 2⁻¹⁶ of max|logit| (and of
+# each step's cost for C̃; their sum for params, since η/Δθ = 1 moves a
+# parameter by C̃ a step) leaves them ~30× room, and TF32's 2⁻¹¹ misses it
+REC_CPU_STEPS = 2
+REC_CPU_REL = 2.0 ** -16
+REC_RECURRENCE_ATOL = 2e-3     # chunked against the step recurrence (twin)
+# 14d: the f32 decode gate, as the MoE gates of phase 13 (the two forms
+# differ by the order of f32 sums, and the chunked recurrence's)
+REC_DECODE_REL = 2.0 ** -16
+# RWKV-6 at this init amplifies rounding with depth: moving every input
+# embedding by one f32 ulp moves its logits by 0.4 of that limit at 2
+# layers and 50× it at 32 (d 256, this PR's CPU measurement), so no two
+# f32 computations of the 32-layer model can agree within it.  Its gate
+# runs at full width and this depth; the full depth's decode error and
+# one-ulp reading are printed beside it.  zamba2 (0.4× at 81 layers) is
+# gated at full depth.
+REC_GATE_LAYERS = {"rwkv6-7b": 1}
+
+
+@contextlib.contextmanager
+def tf32_allowed(torch):
+    """TF32 on for cuBLAS matmuls and cuDNN (a control), off after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def recurrent_card_vs_cpu(torch, rt, dev):
+    """14a: each recurrent smoke config (f32) on the card against the CPU
+    from the same params and batches (launch/train.py's 8 × 64, the LM
+    stream): forward logits, then REC_CPU_STEPS fused central steps (C̃,
+    params), as fractions of their limits; the same on the card with TF32
+    allowed must miss.  Then the chunked recurrences on the card against
+    their own step recurrences."""
+    from repro_torch.core.utils import tree_leaves, tree_map
+    from repro_torch.models import transformer as tt
+
+    cpu_dev = torch.device("cpu")
+    out = {}
+    for arch in REC_ARCHS:
+        cfg = rt.get_smoke_config(arch)
+        p0 = rt.model_init(cfg, 0, device=cpu_dev)
+        sample = rt.lm_sampler(FAM_BATCH, FAM_SEQ, cfg.vocab, seed=0,
+                               device=cpu_dev)
+        batches = [sample(i) for i in range(REC_CPU_STEPS)]
+
+        def run(where):
+            params = tree_map(lambda t: t.to(where), p0)
+            with torch.no_grad():
+                logits = tt.model_forward(params, cfg, {
+                    "tokens": batches[0]["tokens"].to(where)}).cpu()
+            drv = lm_driver(rt, cfg, where, mode="central")
+            state = drv.init(params)
+            cts, costs = [], []
+            for b in batches:
+                params, state, aux = drv.step(
+                    params, state, tree_map(lambda t: t.to(where), b))
+                cts.append(aux["c_tilde"].item())
+                costs.append(aux["cost"].item())
+            return logits, cts, costs, [t.cpu() for t in tree_leaves(params)]
+
+        logits, cts, costs, leaves = run(cpu_dev)
+        ct_limits = [REC_CPU_REL * abs(c) for c in costs]
+
+        def in_limits(card):
+            return dict(
+                logits=(card[0] - logits).abs().max().item()
+                / (REC_CPU_REL * logits.abs().max().item()),
+                c_tilde=max(abs(a - b) / lim
+                            for a, b, lim in zip(card[1], cts, ct_limits)),
+                params=max((a - b).abs().max().item()
+                           for a, b in zip(card[3], leaves))
+                / sum(ct_limits))
+
+        rec = dict(c_tilde_cpu=cts, costs_cpu=costs,
+                   gaps_in_limits=in_limits(run(dev)))
+        with tf32_allowed(torch):
+            rec["tf32_control_in_limits"] = in_limits(run(dev))
+        out[arch] = rec
+        if not all(v <= 1.0 for v in rec["gaps_in_limits"].values()):
+            fail(f"{arch} (smoke, f32): card against CPU beyond the limits "
+                 f"({rec})")
+        if not max(rec["tf32_control_in_limits"].values()) > 1.0:
+            fail(f"{arch} (smoke, f32): the card-vs-CPU gate passes its TF32 "
+                 f"control ({rec})")
+    out["recurrence"] = chunked_vs_recurrence(torch, dev)
+    print(json.dumps({"recurrent_card_vs_cpu": out}), flush=True)
+    return out
+
+
+def chunked_vs_recurrence(torch, dev):
+    """The card's chunked recurrences against their own single-token steps
+    over 64 tokens, within REC_RECURRENCE_ATOL (the twin of the
+    reference's tests: its shapes and chunks, then rwkv6's and zamba2's
+    head widths at their chunks, batch 8)."""
+    from repro_torch.models import linear_attention as la
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases = [("vector", 2, 2, 8, 12, c) for c in (8, 16, 64)] + \
+        [("scalar", 2, 2, 8, 12, c) for c in (8, 32)] + \
+        [("vector", FAM_BATCH, 64, 64, 64, 32),
+         ("scalar", FAM_BATCH, 112, 64, 64, 64)]
+    out = []
+    for kind, b, h, dk, dv, chunk in cases:
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        q, k, v = rand(b, FAM_SEQ, h, dk), rand(b, FAM_SEQ, h, dk), \
+            rand(b, FAM_SEQ, h, dv)
+        st = torch.zeros((b, h, dk, dv), device=dev)
+        ys = []
+        if kind == "vector":
+            lw, u = -torch.exp(rand(b, FAM_SEQ, h, dk)), rand(h, dk)
+            y, s_fin = la.chunked_vector_decay(q, k, v, lw, u, chunk=chunk)
+            for t in range(FAM_SEQ):
+                yt, st = la.step_vector_decay(q[:, t], k[:, t], v[:, t],
+                                              lw[:, t], u, st)
+                ys.append(yt)
+        else:
+            lw = -torch.exp(rand(b, FAM_SEQ, h)) * 0.5
+            y, s_fin = la.chunked_scalar_decay(q, k, v, lw, chunk=chunk)
+            for t in range(FAM_SEQ):
+                yt, st = la.step_scalar_decay(q[:, t], k[:, t], v[:, t],
+                                              lw[:, t], st)
+                ys.append(yt)
+        err = max((y - torch.stack(ys, 1)).abs().max().item(),
+                  (s_fin - st).abs().max().item())
+        out.append(dict(kind=kind, shape=[b, FAM_SEQ, h, dk, dv], chunk=chunk,
+                        max_abs_err=err))
+        if not err <= REC_RECURRENCE_ATOL:
+            fail(f"chunked {kind} decay at {out[-1]} leaves its step "
+                 f"recurrence by more than {REC_RECURRENCE_ATOL}")
+    return out
+
+
+def recurrent_training(torch, rt, kernels, card, dev, arch):
+    """14b, 14c: ``arch`` at full width and depth, bf16, fused central
+    through ``driver`` and ``make_epoch``: the probes materialize θ ± θ̃
+    (no perturbed-matmul launch) and B3 updates every ndim ≥ 2 leaf, one
+    launch a dtype (bf16 and f32).  REC_GATE_STEPS steps bitwise the plain
+    update (another seed's differs), REC_MAIN_STEPS counted steps, peak
+    memory, the device's busy share of one step, one sign's θ ± θ̃ against
+    its bytes bound."""
+    from repro_torch.core import perturbations as pert
+
+    cfg = rt.get_config(arch)
+    what = f"{arch} ({cfg.n_layers} layers)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rt.model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in rt.core.utils.tree_leaves(params))
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    sample = family_sampler(torch, rt, cfg, dev)
+    drvs = (lm_driver(rt, cfg, dev, mode="central"),
+            lm_driver(rt, cfg, dev, "ref", mode="central"),
+            lm_driver(rt, cfg, dev, seed=1, mode="central"))
+    drv = drvs[0]
+    state = drv.init(params)
+    windows = window_launches(params)
+    gate_steps = []
+    for n in range(REC_GATE_STEPS):
+        params, state, rec, _ = window_gate_step(
+            torch, kernels, drvs, params, state, sample(n), windows,
+            f"{what}: step {n}")
+        gate_steps.append(rec)
+    # the counted main path: make_epoch's steps, counters zeroed before
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, aux = rt.make_epoch(drv, REC_MAIN_STEPS, sample)(params,
+                                                                    state)
+    costs = aux["cost"].tolist()
+    epoch_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = dict(perturbed_matmul=0, perturbed_matmul_pair=0,
+                    mgd_update_window=windows * REC_MAIN_STEPS, mgd_update=0)
+    if counts != expected:
+        fail(f"{what}: launches {counts} != expected {expected}")
+    if not all(math.isfinite(c) for c in costs):
+        fail(f"{what}: a cost went non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= REC_PEAK_GB:
+        fail(f"{what}: peak {peak_gb:.2f} GB")
+    n = REC_GATE_STEPS + REC_MAIN_STEPS
+    prof = device_profile(torch, lambda: drv.step(params, state, sample(n)),
+                          1)
+    theta_s, theta_bound_ms = theta_tree_time(torch, rt, pert, params, n)
+    del params, state, drv, drvs
+    torch.cuda.empty_cache()
+    rec = dict(arch=arch, layers=cfg.n_layers, params=n_params,
+               params_gb=params_gb, init_s=init_s, gate_steps=gate_steps,
+               s_per_step=epoch_s / REC_MAIN_STEPS, costs=costs,
+               launches=counts, window_launches_per_step=windows,
+               step_profile=prof, perturbed_tree_s=theta_s,
+               perturbed_tree_bound_ms=theta_bound_ms, peak_mem_gb=peak_gb,
+               card=card)
+    print(json.dumps({"recurrent_training": rec}), flush=True)
+    return rec
+
+
+def recurrent_decode_bound(rt, params, cfg, batch, cache):
+    """Bytes a recurrent decode step must move (each input read once, each
+    output written once): the stacked layers' weights, the hybrid's shared
+    block (once, though 27 calls read it), the final norm and the head,
+    the batch's embedding rows, the recurrent state read and written, the
+    hybrid's K/V caches read, the logits; and its bf16 operations (2 per
+    weight a call and token)."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.models import transformer as tt
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def numel(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    esz = params["embed"]["head"]["w"].element_size()
+    shared = params.get("shared_attn")
+    weights = (nbytes(params["layers"]) + nbytes(shared)
+               + nbytes(params["embed"]["head"])
+               + nbytes(params["embed"]["ln_f"]))
+    state = nbytes(cache["state"])
+    kv = nbytes([cache[k] for k in ("k", "v") if k in cache])
+    total = weights + 2 * state + kv + batch * (cfg.d_model + cfg.vocab) * esz
+    calls = tt._hybrid_plan(cfg)[1] if shared is not None else 0
+    flops = 2.0 * batch * (numel(params["layers"]) + calls * numel(shared)
+                           + numel(params["embed"]["head"]))
+    ms, by = bound(flops, total, "bfloat16")
+    return dict(bytes=total, weight_bytes=weights, state_bytes=state,
+                kv_bytes=kv, flops=flops, bound_ms=ms, bound_by=by)
+
+
+def recurrent_controls(cfg):
+    """The decode gate's controls of a recurrent model: rwkv6 the last
+    layer's wkv state and its att_x token shift zeroed after prefill;
+    zamba2 the last Mamba layer's conv tail zeroed after prefill, and the
+    shared block's K/V at the last position zeroed before each step."""
+    def zero(key):
+        return dict(after_prefill=lambda c: c["state"][key][-1].zero_())
+
+    if cfg.family == "ssm":
+        return {"wkv_zeroed": zero("wkv"), "att_x_zeroed": zero("att_x")}
+    return {"conv_tail_zeroed": zero("conv"),
+            "zeroed_last": dict(zero_last=True)}
+
+
+def one_ulp_gap(torch, tt, params, cfg, seq, full):
+    """How far the full forward's logits move when every input embedding
+    moves up by one ulp: the model's own amplification of rounding."""
+    emb = params["embed"]["tok"]["table"][seq.long()]
+    with torch.no_grad():
+        moved = tt.model_forward(params, cfg, {"embeds": torch.nextafter(
+            emb, torch.full_like(emb, math.inf))})
+    return (moved.float() - full.float()).abs().max().item()
+
+
+def recurrent_serving(torch, rt, kernels, card, dev, arch):
+    """14d: ``arch`` at full depth, bf16: ``launch/serve.py``'s defaults
+    (batch 4, prompt 32, 32 new tokens), prefill and decode steps timed
+    alone beside the decode's bytes bound, tok/s and peak memory, a bf16
+    reading of teacher-forced decode against the full forward (printed);
+    then, the bf16 tree freed, the f32 decode gate (REC_DECODE_REL of
+    max|logit|) with its two controls, at REC_GATE_LAYERS' depth where
+    that names one (the full depth's decode error and one-ulp reading in
+    f32 printed beside it).  Launches no kernel."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving import greedy_generate
+
+    cfg = rt.get_config(arch)
+    what = f"{arch} serving ({cfg.n_layers} layers)"
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch_serve.main(["--arch", arch, "--device", dev.type])
+    launcher_s = time.perf_counter() - t0
+    if tuple(out.shape) != (GEN_BATCH, GEN_NEW) or \
+            not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        fail(f"{what}: the launcher generated {tuple(out.shape)} tokens out "
+             f"of range")
+    torch.cuda.empty_cache()
+    params = rt.model_init(cfg, 0, device=dev)
+    prompts = rt.core.rng.randint(rt.core.rng.prng_key(1),
+                                  (GEN_BATCH, GEN_PROMPT), 0, cfg.vocab,
+                                  device=dev).to(torch.int32)
+    greedy_generate(params, cfg, prompts, 2)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = greedy_generate(params, cfg, prompts, GEN_NEW).cpu()
+    gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.equal(gen, out):
+        fail(f"{what}: greedy_generate disagrees with the launcher's run of "
+             f"the same seed")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tt.model_prefill(params, cfg, {"tokens": prompts},
+                                         GEN_PROMPT + GEN_NEW)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks = logits[:, -1].argmax(-1)
+        t0 = time.perf_counter()
+        for _ in range(GEN_NEW - 1):
+            logits, cache = tt.model_decode(params, cfg, toks, cache)
+            toks = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (GEN_NEW - 1)
+
+        def steps():                 # more steps from the same cache
+            for _ in range(PROFILE_DECODE_STEPS):
+                tt.model_decode(params, cfg, toks,
+                                dict(cache, length=cache["length"] - 1))
+
+        prof = device_profile(torch, steps, PROFILE_DECODE_STEPS)
+        bnd = recurrent_decode_bound(rt, params, cfg, GEN_BATCH, cache)
+        del logits, cache
+        # bf16: teacher-forced decode against the forward, read, not gated
+        seq = family_sampler(torch, rt, cfg, dev)(0)["tokens"]
+        full = tt.model_forward(params, cfg, {"tokens": seq})
+        bf16_err = decode_errors(torch, tt, params, cfg, seq, full)
+        bf16_top = full.float().abs().max().item()
+    del params, full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = cfg.replace(dtype="float32")
+    params = rt.model_init(cfg32, 0, device=dev)
+    with torch.no_grad():
+        full = tt.model_forward(params, cfg32, {"tokens": seq})
+    limit = REC_DECODE_REL * full.abs().max().item()
+    f32_full_depth = dict(
+        layers=cfg.n_layers,
+        decode_err_in_limits=decode_errors(torch, tt, params, cfg32, seq,
+                                           full) / limit,
+        one_ulp_input_in_limits=one_ulp_gap(torch, tt, params, cfg32, seq,
+                                            full) / limit)
+    if arch in REC_GATE_LAYERS:
+        del params, full
+        torch.cuda.empty_cache()
+        cfg32 = cfg32.replace(n_layers=REC_GATE_LAYERS[arch])
+        params = rt.model_init(cfg32, 0, device=dev)
+        with torch.no_grad():
+            full = tt.model_forward(params, cfg32, {"tokens": seq})
+    gate = decode_gate(torch, tt, params, cfg32, seq, full,
+                       f"{what} (f32, {cfg32.n_layers} layers)",
+                       rel=REC_DECODE_REL, controls=recurrent_controls(cfg))
+    gate.update(layers=cfg32.n_layers, one_ulp_input_in_limits=one_ulp_gap(
+        torch, tt, params, cfg32, seq, full) / gate["gate_limit"])
+    del params, full
+    torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        fail(f"{what}: serving launched kernels {counts}")
+    rec = dict(arch=arch, layers=cfg.n_layers, batch=GEN_BATCH,
+               prompt=GEN_PROMPT, new_tokens=GEN_NEW, launcher_s=launcher_s,
+               generate_s=gen_s, tok_per_s=GEN_BATCH * GEN_NEW / gen_s,
+               prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+               decode_profile=prof, decode_bound=bnd,
+               decode_bound_share=bnd["bound_ms"] / decode_ms,
+               peak_mem_gb=peak_gb,
+               bf16_decode_err_in_f32_limits=bf16_err / (REC_DECODE_REL
+                                                         * bf16_top),
+               bf16_decode_err_in_8_ulps=bf16_err / (GATE_ULPS
+                                                     * bf16_ulp(bf16_top)),
+               decode_gate=gate, f32_full_depth=f32_full_depth,
+               gate_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               sample=gen[0, :16].tolist(), launches=counts, card=card)
+    print(json.dumps({"recurrent_serving": rec}), flush=True)
+    return rec
+
+
+def recurrent_summary(out):
+    """Phase 14's gates and speeds, one entry a sub-phase and model."""
+    def train(rec):
+        return dict(layers=rec["layers"], s_per_step=rec["s_per_step"],
+                    perturbed_tree_s=rec["perturbed_tree_s"],
+                    perturbed_tree_bound_ms=rec["perturbed_tree_bound_ms"],
+                    device_busy_share=rec["step_profile"][
+                        "device_busy_share"],
+                    peak_mem_gb=rec["peak_mem_gb"], launches=rec["launches"],
+                    window_bitwise_plain=[g["params_bitwise_plain"]
+                                          for g in rec["gate_steps"]])
+
+    def serve(rec):
+        gate = rec["decode_gate"]
+        return dict(arch=rec["arch"], tok_per_s=rec["tok_per_s"],
+                    prefill_ms=rec["prefill_ms"],
+                    decode_ms_per_step=rec["decode_ms_per_step"],
+                    decode_bound_ms=rec["decode_bound"]["bound_ms"],
+                    peak_mem_gb=rec["peak_mem_gb"],
+                    bf16_decode_err_in_f32_limits=rec[
+                        "bf16_decode_err_in_f32_limits"],
+                    decode={k: v for k, v in gate.items()
+                            if k.endswith("_in_limits") or k == "layers"},
+                    f32_full_depth=rec["f32_full_depth"])
+
+    return {"14a": {k: v if k == "recurrence" else
+                    dict(gaps=v["gaps_in_limits"],
+                         tf32=v["tf32_control_in_limits"])
+                    for k, v in out["14a"].items()},
+            "14b": train(out["14b"]), "14c": train(out["14c"]),
+            "14d": [serve(r) for r in out["14d"]], "seconds": out["seconds"]}
+
+
+def recurrent_families(torch, rt, kernels, card, dev):
+    """Phase 14: 14a card against CPU (smoke, f32) with its TF32 control
+    and the chunked recurrences against their steps; 14b rwkv6-7b and 14c
+    zamba2-7b trained at full width and depth; 14d both served.  Returns
+    (records, launch totals of the counted steps)."""
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["14a"] = recurrent_card_vs_cpu(torch, rt, dev)
+    secs["14a"] = time.perf_counter() - t0
+    for sub, arch in zip(("14b", "14c"), REC_ARCHS):
+        t0 = time.perf_counter()
+        out[sub] = recurrent_training(torch, rt, kernels, card, dev, arch)
+        secs[sub] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["14d"] = [recurrent_serving(torch, rt, kernels, card, dev, arch)
+                  for arch in REC_ARCHS]
+    secs["14d"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    totals = {name: out["14b"]["launches"][name]
+              + out["14c"]["launches"][name] for name in SOURCES}
+    return out, totals
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -2986,9 +3484,20 @@ def main(argv=None) -> int:
           flush=True)
     done(13, t0)
 
+    # -- phase 14: the recurrent families at full width and depth -----------
+    t0 = time.perf_counter()
+    recurrent, recurrent_counts = recurrent_families(torch, rt, kernels,
+                                                     card, dev)
+    print("phase 14: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in recurrent["seconds"].items()),
+        flush=True)
+    print(json.dumps({"phase14_summary": recurrent_summary(recurrent)}),
+          flush=True)
+    done(14, t0)
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
                    pp_mlp_counts, pp_lm_counts, serving_counts,
-                   family_counts):
+                   family_counts, recurrent_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -3039,7 +3548,8 @@ def main(argv=None) -> int:
             transformer=lm_results, full_depth=deep,
             imperfect_device=imperfect, resume=resume, paper_model=paper,
             paper_cnns=cnns, probe_parallel=pp, serving=serving,
-            attention_families=families, phase_s=phase_s,
+            attention_families=families, recurrent_families=recurrent,
+            phase_s=phase_s,
             ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

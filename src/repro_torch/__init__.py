@@ -12,9 +12,9 @@ reference.  Same front door:
     state = mgd.init(params)
     params, state, aux = mgd.step(params, state, batch)
 
-The decoder transformers of the attention families (dense GQA such as
-Qwen3-14B, the qwen2-vl and musicgen backbones, MoE and MLA: every id in
-``configs.PORTED``) train the same way at full width::
+The decoders of every family (dense GQA such as Qwen3-14B, the qwen2-vl
+and musicgen backbones, MoE, MLA, RWKV-6 and the Mamba-2 hybrid: every
+id in ``configs.PORTED``) train the same way at full width::
 
     cfg = rt.get_config("qwen3-14b")
     params = rt.model_init(cfg.replace(n_layers=4), seed=0)

@@ -1,12 +1,11 @@
 """Architecture registry: the JAX package's ten arch ids + input shapes.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` resolve an ``--arch``
-id.  The port carries the eight attention-family ids (the dense GQA
-decoders, the VLM and audio backbones, MoE and MLA); ``rwkv6-7b`` and
-``zamba2-7b`` stay listed and raise until the recurrent families are
-ported (ROADMAP A14b).  ``runnable_cells()`` enumerates the reference's
-40 (arch × shape) cells, marking the long_500k skips of the full-attention
-architectures.
+id.  The port carries all ten: the attention families (the dense GQA
+decoders, the VLM and audio backbones, MoE and MLA) and the recurrent
+ones (``rwkv6-7b``, ``zamba2-7b``).  ``runnable_cells()`` enumerates the
+reference's 40 (arch × shape) cells, marking the long_500k skips of the
+full-attention architectures.
 """
 from __future__ import annotations
 
@@ -26,18 +25,12 @@ ARCH_IDS = [
     "musicgen-medium",
     "zamba2-7b",
 ]
-PORTED = ("qwen2-vl-2b", "mistral-nemo-12b", "qwen3-14b", "granite-34b",
-          "qwen2-72b", "deepseek-v3-671b", "llama4-scout-17b-a16e",
-          "musicgen-medium")
+PORTED = tuple(ARCH_IDS)
 
 
 def _module(name: str):
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP A14b, "
-            f"the recurrent families); ported: {list(PORTED)}")
     return importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_')}")
 

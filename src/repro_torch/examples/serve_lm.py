@@ -4,6 +4,8 @@ feedback.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--trim] \\
         [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm \\
+        --arch rwkv6-7b --trim [--device cpu]
 
 Each "request" is a fixed-length token window; the client pads ragged
 prompts into the window, the service batches concurrent requests into
@@ -11,7 +13,8 @@ slots and answers with next-token logits from one snapshot-consistent
 parameter version per batch.  With ``--trim``, labeled feedback flows
 into the replay buffer and a background MGD trimmer improves the served
 weights while traffic keeps flowing — no backprop, scalar cost only.
-The port runs the dense GQA family (qwen3-14b at smoke scale here).
+Works with any non-stub architecture at smoke scale, the recurrent ones
+(rwkv6-7b, zamba2-7b) included.
 """
 import argparse
 import time

@@ -21,7 +21,8 @@ The twin of the reference's ``launch/serve.py``, flag for flag, plus
 
 Any ported architecture but the stub-frontend ones (vlm, audio), which
 the reference's launcher refuses too: they take embeddings, not a token
-prompt.  The recurrent families raise (ROADMAP A14b).
+prompt.  The recurrent families (rwkv6-7b, zamba2-7b) decode from their
+recurrent state (and zamba2's shared-block K/V cache).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""Models: the paper's sigmoid MLPs and CNNs, and the decoder transformers
-of the attention families (dense GQA, VLM, audio, MoE, MLA).  The MoE and
-MLA building blocks live in ``models.moe`` and ``models.mla``, where the
-reference keeps them."""
+"""Models: the paper's sigmoid MLPs and CNNs, and the decoders of every
+family (dense GQA, VLM, audio, MoE, MLA, RWKV-6, the Mamba-2 hybrid).
+The building blocks live where the reference keeps them: ``models.moe``,
+``models.mla``, ``models.rwkv6``, ``models.mamba2`` and
+``models.linear_attention``."""
 from .config import ArchConfig
 from .simple import (cifar_cnn_apply, cifar_cnn_init, cnn_apply, cnn_init,
                      fashion_cnn_apply, fashion_cnn_init, linear_apply,

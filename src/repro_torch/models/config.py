@@ -1,14 +1,12 @@
 """ArchConfig — one frozen dataclass describing every supported family.
 
 The JAX package's ``repro.models.config.ArchConfig``, field for field;
-``torch_dtype`` takes the place of its ``jdtype``.  The port runs the
-attention families: ``dense``, ``vlm``, ``audio`` and ``moe`` (GQA or
-MLA attention, a SwiGLU MLP or a mixture of experts); ``ssm`` and
-``hybrid`` raise where a model is built or run (ROADMAP A14b).  ``fsdp``
-and ``seq_parallel`` only place tensors on a mesh, so on the port's one
-card they change no value, as in the reference on a one-device mesh.
-``la_chunk`` is read only by the linear-attention families;
-``scan_layers`` changes no value, and the port always loops over layers.
+``torch_dtype`` takes the place of its ``jdtype``.  The port runs every
+family below.  ``fsdp`` and ``seq_parallel`` only place tensors on a
+mesh, so on the port's one card they change no value, as in the
+reference on a one-device mesh.  ``la_chunk`` is read only by the
+linear-attention families (ssm, hybrid); ``scan_layers`` changes no
+value, and the port always loops over layers.
 
 Families:
     dense   — GQA decoder transformer (mistral-nemo, qwen3, granite, qwen2)

@@ -75,6 +75,17 @@ def layernorm(p, x, eps=1e-5):
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
+def groupnorm_heads(p, x, n_heads: int, eps=1e-5):
+    """GroupNorm with one group per head over the flattened head dim
+    (RWKV-6's ln_x), statistics in f32.  x: [..., H·D]."""
+    *lead, hd = x.shape
+    xf = x.float().reshape(*lead, n_heads, hd // n_heads)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, hd)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32, device=None):
     table = torch.randn((vocab, d), generator=gen, dtype=torch.float32,

@@ -1,10 +1,13 @@
-"""Decoder transformers of the attention families: plain forward, fused
-MGD probe path, and serving.
+"""Decoder assembly for every family: plain forward, fused MGD probe
+path, and serving.
 
-PyTorch counterpart of ``repro.models.transformer`` for the ``dense``,
-``vlm``, ``audio`` and ``moe`` families: GQA attention (optional qk-norm
-and QKV bias, RoPE or M-RoPE) or MLA (DeepSeek-V3), a SwiGLU MLP or a
-mixture of experts, RMSNorm:
+PyTorch counterpart of ``repro.models.transformer``.  The attention
+families (``dense``, ``vlm``, ``audio``, ``moe``): GQA attention (optional
+qk-norm and QKV bias, RoPE or M-RoPE) or MLA (DeepSeek-V3), a SwiGLU MLP
+or a mixture of experts, RMSNorm.  The recurrent ones: ``ssm`` (RWKV-6
+blocks) and ``hybrid`` (zamba2: groups of ``attn_every`` Mamba-2 blocks,
+each group followed by one call of a single shared attention + MLP
+block):
 
     model_init(cfg, seed, device=...)     → params (stacked-layer pytree)
     model_forward(params, cfg, batch)     → logits [B, S, V] ([B, S, nq, V]
@@ -22,22 +25,24 @@ leaf ids and sign indices match it; the reference's ``lax.scan`` over
 layers is a Python loop here, with a host-int layer index.  Sharding
 annotations are dropped: ``fsdp`` and ``seq_parallel`` only place
 tensors on a mesh, and the port runs on one card, as the reference does
-on a one-device mesh.  The recurrent families (ssm, hybrid) raise and
-name ROADMAP A14b.
+on a one-device mesh.
 
 Dense GQA decoders (incl. the vlm/audio backbones) probe through the
-perturbed-matmul kernels (``supports_fused_probe``); MoE and MLA models
-probe by materializing θ ± θ̃ leaf by leaf (``perturbations.
-perturbed_tree``), as the reference does, and their update still runs in
-the window-update kernel.
+perturbed-matmul kernels (``supports_fused_probe``); MoE, MLA and the
+recurrent families probe by materializing θ ± θ̃ leaf by leaf
+(``perturbations.perturbed_tree``), as the reference does, and their
+update still runs in the window-update kernel.
 
 The cache keeps the reference's layout: ``{"k", "v": [L, B, S_max, KVH,
 dh]}``, or for MLA ``{"c_kv": [L, B, S_max, r], "k_rope": [L, B, S_max,
-dr]}``, and ``"length"``.  Where the reference donates the cache into a
-jitted decode, ``model_decode`` writes the new token's entries into the
-preallocated cache in place, at ``length − 1``.  ``length`` is a 0-d int32
-tensor kept on the host, so a decode step reads it without waiting for
-the card.
+dr]}``; for ``ssm`` ``{"state"}`` (each layer's RWKV-6 state stacked on
+L); for ``hybrid`` ``{"state", "k", "v": [G, B, S_max, KVH, dh]}`` (the
+Mamba-2 states stacked on the 54 blocks, one K/V cache a group); and
+``"length"``.  Where the reference donates the cache into a jitted
+decode, ``model_decode`` writes the new token's entries (K/V at ``length
+− 1``, the recurrent states whole) into the cache in place.  ``length`` is
+a 0-d int32 tensor kept on the host, so a decode step reads it without
+waiting for the card.
 """
 from __future__ import annotations
 
@@ -55,27 +60,25 @@ from .config import ArchConfig
 from .layers import (dense, dense_init, embed, embedding_init, glu_mlp,
                      glu_mlp_init, pdense, pembed, pleaf, prmsnorm, rmsnorm,
                      rmsnorm_init)
+from .mamba2 import (mamba2_block, mamba2_block_init, mamba2_block_step,
+                     mamba2_state_init)
 from .mla import mla_attention, mla_cache_update, mla_decode, mla_init
 from .moe import moe_apply, moe_init
 from .rope import apply_mrope, apply_rope
+from .rwkv6 import (rwkv6_block, rwkv6_block_init, rwkv6_block_step,
+                    rwkv6_state_init)
 
 _INIT_TAG = 0x7F4A
 _EMBED_LAYER = 0xFFFF   # generator key of the embedding/head parameters
+_SHARED_LAYER = 0xFFFE  # generator key of the hybrid's shared block
 
 
 def supports_fused_probe(cfg: ArchConfig) -> bool:
     """Dense GQA decoders (incl. the vlm/audio stub frontends) have the
-    fully fused probe path; MoE and MLA models materialize θ ± θ̃."""
+    fully fused probe path; MoE, MLA, ssm and hybrid models materialize
+    θ ± θ̃."""
     return (cfg.family in ("dense", "vlm", "audio")
             and not cfg.use_mla and not cfg.n_experts)
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the recurrent {cfg.family!r} family (RWKV-6, "
-            f"Mamba-2) is not ported to repro_torch yet (ROADMAP A14b); the "
-            f"port runs the attention families")
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +153,6 @@ def attn_decode_step(p, x1, positions, kcache, vcache, length: int,
 
 
 def block_init(gen, cfg: ArchConfig, dtype, device=None):
-    _check_family(cfg)
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
          "ln2": rmsnorm_init(cfg.d_model, dtype, device)}
     if cfg.use_mla:
@@ -232,7 +234,6 @@ def _codebook_ids(cfg: ArchConfig, tokens):
 
 def _embed_tokens(p, cfg: ArchConfig, batch):
     """Tokens or stub-frontend embeddings → [B, S, d]."""
-    _check_family(cfg)
     if "embeds" in batch:
         return batch["embeds"]
     if cfg.n_codebooks:
@@ -272,32 +273,54 @@ def _generator(seed: int, layer: int, device) -> torch.Generator:
     return gen
 
 
+def _hybrid_plan(cfg: ArchConfig):
+    """zamba2: ``n_layers`` counts Mamba blocks and shared-block calls,
+    in groups of ``attn_every`` Mamba blocks + 1 call.  Returns (Mamba
+    blocks, groups)."""
+    k = cfg.attn_every
+    n_groups = cfg.n_layers // (k + 1)
+    return n_groups * k, n_groups
+
+
+def _stack_init(cfg: ArchConfig):
+    """(init of one stacked layer, number of stacked layers)."""
+    if cfg.family == "ssm":
+        return rwkv6_block_init, cfg.n_layers
+    if cfg.family == "hybrid":
+        return mamba2_block_init, _hybrid_plan(cfg)[0]
+    return block_init, cfg.n_layers
+
+
 def model_init(cfg: ArchConfig, seed: int, *, device=None):
     """Random params from ``seed`` on ``device`` (the card unless
-    ``device="cpu"``), drawn there: layer l from a generator keyed on
-    (seed, l).  Stacked banks are filled one layer at a time, so the
-    peak is the params plus one layer.  The draws match neither the JAX
-    package's threefry nor another device's; parity tests carry the
-    reference's params with ``repro_torch.convert``."""
-    _check_family(cfg)
+    ``device="cpu"``), drawn there: stacked layer l from a generator keyed
+    on (seed, l), the hybrid's shared block from a key of its own.  Stacked
+    banks are filled one layer at a time, so the peak is the params plus
+    one layer.  The draws match neither the JAX package's threefry nor
+    another device's; parity tests carry the reference's params with
+    ``repro_torch.convert``."""
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     params: Dict[str, Any] = {
         "embed": _embed_init(_generator(seed, _EMBED_LAYER, dev), cfg, dtype,
                              dev)}
+    init_one, n_layers = _stack_init(cfg)
     leaves, treedef = tree_flatten(
-        block_init(_generator(seed, 0, dev), cfg, dtype, dev))
-    if cfg.n_layers == 1:
+        init_one(_generator(seed, 0, dev), cfg, dtype, dev))
+    if cfg.family == "hybrid":
+        params["shared_attn"] = block_init(
+            _generator(seed, _SHARED_LAYER, dev), cfg, dtype, dev)
+    if n_layers == 1:
         # the layer's leaves, viewed [1, ...]: one copy of a layer that may
         # be half the card (DeepSeek-V3's 23 GB)
         params["layers"] = tree_unflatten(treedef, [a[None] for a in leaves])
         return params
-    stacked = [torch.empty((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
+    stacked = [torch.empty((n_layers,) + tuple(a.shape), dtype=a.dtype,
                            device=dev) for a in leaves]
-    for layer in range(cfg.n_layers):
+    for layer in range(n_layers):
         if layer:
-            leaves = tree_flatten(block_init(_generator(seed, layer, dev),
-                                             cfg, dtype, dev))[0]
+            leaves = tree_flatten(init_one(_generator(seed, layer, dev),
+                                           cfg, dtype, dev))[0]
         for dst, src in zip(stacked, leaves):
             dst[layer].copy_(src)
         del leaves
@@ -309,25 +332,83 @@ def _layer_params(layers, layer: int):
     return tree_map(lambda a: a[layer], layers)
 
 
-def model_forward(params, cfg: ArchConfig, batch, *, return_state=False):
+def _stack_states(states):
+    """Per-layer state dicts → one dict of tensors stacked on L."""
+    return {key: torch.stack([st[key] for st in states])
+            for key in states[0]}
+
+
+def _ssm_forward(params, cfg: ArchConfig, x, state, return_state):
+    states = []
+    for layer in range(cfg.n_layers):
+        st = (rwkv6_state_init(cfg, x.shape[0], device=x.device)
+              if state is None else _layer_params(state, layer))
+        x, st = rwkv6_block(_layer_params(params["layers"], layer), x, st,
+                            cfg, chunk=cfg.la_chunk)
+        if return_state:
+            states.append(st)
+        del st
+    return x, _stack_states(states) if return_state else None
+
+
+def _hybrid_forward(params, cfg: ArchConfig, x, positions, state,
+                    return_state):
+    """Mamba layer g·k + j for j < k, then the shared block, for each
+    group g; the shared block keeps its K/V per group."""
+    _, n_groups = _hybrid_plan(cfg)
+    k = cfg.attn_every
+    states, kvs = [], []
+    for g in range(n_groups):
+        for layer in range(g * k, (g + 1) * k):
+            st = (mamba2_state_init(cfg, x.shape[0], device=x.device)
+                  if state is None else _layer_params(state["mamba"], layer))
+            x, st = mamba2_block(_layer_params(params["layers"], layer), x,
+                                 st, cfg, chunk=cfg.la_chunk)
+            if return_state:
+                states.append(st)
+            del st
+        x, kv = block_apply(params["shared_attn"], x, positions, cfg)
+        if return_state:
+            kvs.append(kv)
+        del kv
+    if not return_state:
+        return x, None
+    return x, {"mamba": _stack_states(states),
+               "attn_kv": tuple(torch.stack(parts) for parts in zip(*kvs))}
+
+
+def model_forward(params, cfg: ArchConfig, batch, *, return_state=False,
+                  state=None):
     """Full-sequence forward → logits [B, S, V].  With ``return_state``
-    also the per-layer cache payloads stacked on L: (k, v) [L, B, S, KVH,
-    dh], or for MLA (c_kv [L, B, S, r], k_rope [L, B, S, dr]) (the
-    prefill path)."""
+    also what a decode continues from (the prefill path): the per-layer
+    cache payloads stacked on L, (k, v) [L, B, S, KVH, dh], or for MLA
+    (c_kv [L, B, S, r], k_rope [L, B, S, dr]); for ``ssm`` the RWKV-6
+    states stacked on L; for ``hybrid`` ``{"mamba": the Mamba-2 states
+    stacked on the blocks, "attn_kv": (k, v) [G, B, S, KVH, dh]}``.  A
+    recurrent model starts from ``state`` (that structure; zeros when
+    None)."""
     x = _embed_tokens(params["embed"], cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, batch, s, b, x.device)
-    states = []
-    for layer in range(cfg.n_layers):
-        x, state = block_apply(_layer_params(params["layers"], layer), x,
-                               positions, cfg)
-        if return_state:
-            states.append(state)
-        del state
+    if cfg.family == "ssm":
+        x, new_state = _ssm_forward(params, cfg, x, state, return_state)
+    elif cfg.family == "hybrid":
+        x, new_state = _hybrid_forward(params, cfg, x, positions, state,
+                                       return_state)
+    else:
+        states = []
+        for layer in range(cfg.n_layers):
+            x, st = block_apply(_layer_params(params["layers"], layer), x,
+                                positions, cfg)
+            if return_state:
+                states.append(st)
+            del st
+        new_state = (tuple(torch.stack(parts) for parts in zip(*states))
+                     if return_state else None)
     x = rmsnorm(params["embed"]["ln_f"], x, cfg.norm_eps)
     logits = _logits(params["embed"], cfg, x)
     if return_state:
-        return logits, tuple(torch.stack(parts) for parts in zip(*states))
+        return logits, new_state
     return logits
 
 
@@ -493,43 +574,104 @@ def make_transformer_probe_fn(cfg: ArchConfig):
 
 
 def _cache_keys(cfg: ArchConfig):
+    if cfg.family == "ssm":
+        return ()
     return ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+
+
+def _zero_states(state_init, cfg: ArchConfig, n: int, batch_size: int,
+                 dev):
+    """A recurrent state of ``n`` layers, zeros stacked on L."""
+    return {key: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                             device=dev)
+            for key, t in state_init(cfg, batch_size, device="meta").items()}
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
                device=None):
     """An empty cache on ``device`` (the card unless ``device="cpu"``),
-    zeros in the model's dtype: ``{"k", "v": [L, B, max_len, KVH, dh]}``,
+    zeros: ``{"k", "v": [L, B, max_len, KVH, dh]}`` in the model's dtype,
     or for MLA ``{"c_kv": [L, B, max_len, r], "k_rope": [L, B, max_len,
-    dr]}``, with ``"length"``: a 0-d int32 host tensor."""
-    _check_family(cfg)
+    dr]}``; for ``ssm`` ``{"state"}`` (RWKV-6's, f32, stacked on L); for
+    ``hybrid`` ``{"state"}`` (Mamba-2's, f32, stacked on the blocks) and
+    ``{"k", "v": [G, B, max_len, KVH, dh]}``; with ``"length"``: a 0-d
+    int32 host tensor."""
     dev = resolve_device(device)
-    lead = (cfg.n_layers, batch_size, max_len)
+    n_kv = cfg.n_layers
+    cache = {}
+    if cfg.family == "ssm":
+        cache["state"] = _zero_states(rwkv6_state_init, cfg, cfg.n_layers,
+                                      batch_size, dev)
+    elif cfg.family == "hybrid":
+        n_mamba, n_kv = _hybrid_plan(cfg)
+        cache["state"] = _zero_states(mamba2_state_init, cfg, n_mamba,
+                                      batch_size, dev)
+    lead = (n_kv, batch_size, max_len)
     if cfg.use_mla:
         shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_head_dim,))
     else:
         shapes = (lead + (cfg.kv_heads, cfg.head_dim),) * 2
-    cache = {key: torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-             for key, shape in zip(_cache_keys(cfg), shapes)}
+    for key, shape in zip(_cache_keys(cfg), shapes):
+        cache[key] = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
     cache["length"] = torch.zeros((), dtype=torch.int32)
     return cache
 
 
 def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
     """Run the prompt (``tokens``, or stub-frontend ``embeds``); returns
-    (full-seq logits, ready-to-decode cache) on the logits' device."""
+    (full-seq logits, ready-to-decode cache) on the logits' device.  An
+    ssm model's cache is its state alone, whatever ``max_len``."""
     logits, states = model_forward(params, cfg, batch, return_state=True)
     if "tokens" in batch:
         b, s = batch["tokens"].shape[0], batch["tokens"].shape[-1]
     else:
         b, s = batch["embeds"].shape[:2]
+    length = torch.tensor(s, dtype=torch.int32)
+    if cfg.family == "ssm":
+        return logits, {"state": states, "length": length}
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = init_cache(cfg, b, max_len, device=logits.device)
+    if cfg.family == "hybrid":
+        cache["state"] = states["mamba"]
+        states = states["attn_kv"]
     for key, state in zip(_cache_keys(cfg), states):
         cache[key][:, :, :s] = state.to(cache[key].dtype)
-    cache["length"] = torch.tensor(s, dtype=torch.int32)
+    cache["length"] = length
     return logits, cache
+
+
+def _write_state(stacked, layer: int, new) -> None:
+    """Layer ``layer``'s new recurrent state into the stacked cache, in
+    place (in the cache's dtype)."""
+    for key, t in new.items():
+        stacked[key][layer].copy_(t)
+
+
+def _decode_recurrent(params, cfg: ArchConfig, x1, cache, pos, length):
+    """One token through the ssm or hybrid stack, every layer's state (and
+    the hybrid's K/V at ``length − 1``) written into ``cache`` in place."""
+    st = cache["state"]
+    if cfg.family == "ssm":
+        for layer in range(cfg.n_layers):
+            y, new = rwkv6_block_step(_layer_params(params["layers"], layer),
+                                      x1[:, 0], _layer_params(st, layer),
+                                      cfg)
+            _write_state(st, layer, new)
+            x1 = y[:, None, :]
+        return x1
+    _, n_groups = _hybrid_plan(cfg)
+    k = cfg.attn_every
+    for g in range(n_groups):
+        for layer in range(g * k, (g + 1) * k):
+            y, new = mamba2_block_step(_layer_params(params["layers"], layer),
+                                       x1[:, 0], _layer_params(st, layer),
+                                       cfg)
+            _write_state(st, layer, new)
+            x1 = y[:, None, :]
+        x1, _ = block_decode(params["shared_attn"], x1, pos,
+                             (cache["k"][g], cache["v"][g]), length, cfg)
+    return x1
 
 
 def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
@@ -537,7 +679,6 @@ def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
     stub-frontend ``embeds`` [B, 1, d].  Returns (logits [B, V] ([B, nq,
     V] with codebooks), cache): the cache is written in place (the
     caller's dict keeps its old ``length``; use the returned one)."""
-    _check_family(cfg)
     if embeds is not None:
         x1 = embeds
     elif cfg.n_codebooks:
@@ -548,19 +689,22 @@ def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
     b = x1.shape[0]
     keys = _cache_keys(cfg)
     length = int(cache["length"]) + 1
-    if length > cache[keys[0]].shape[2]:
+    if keys and length > cache[keys[0]].shape[2]:
         raise ValueError(f"cache full: decoding position {length - 1} of a "
                          f"cache of {cache[keys[0]].shape[2]}")
     pos = torch.full((b, 1), length - 1, dtype=torch.int32,
                      device=x1.device)
     if cfg.mrope_sections is not None:
         pos = pos[..., None].expand(b, 1, 3)
-    for layer in range(cfg.n_layers):
-        x1, _ = block_decode(_layer_params(params["layers"], layer), x1, pos,
-                             tuple(cache[key][layer] for key in keys),
-                             length, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        x1 = _decode_recurrent(params, cfg, x1, cache, pos, length)
+    else:
+        for layer in range(cfg.n_layers):
+            x1, _ = block_decode(_layer_params(params["layers"], layer), x1,
+                                 pos, tuple(cache[key][layer]
+                                            for key in keys), length, cfg)
     x1 = rmsnorm(params["embed"]["ln_f"], x1, cfg.norm_eps)
     logits = _logits(params["embed"], cfg, x1)[:, 0]
-    new = {key: cache[key] for key in keys}
+    new = {key: t for key, t in cache.items() if key != "length"}
     new["length"] = torch.tensor(length, dtype=torch.int32)
     return logits, new

@@ -227,22 +227,23 @@ def test_gumbel_and_categorical_match_jax(seed):
 
 
 def test_unported_families_raise_a14():
-    """The recurrent families raise and name A14b; stub-frontend
+    """No family raises any more: the recurrent ones (ssm, hybrid) take a
+    cache too.  For the dense smoke config and both recurrent ones,
     ``embeds`` prefill and decode run, and equal the token path fed the
     same embedding rows."""
     _, tcfg = _cfgs()
-    for kw in ({"family": "ssm"}, {"family": "hybrid"}):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tt.init_cache(tcfg.replace(**kw), 1, 8, device="cpu")
-    params = rt.model_init(tcfg, 0, device="cpu")
-    toks = torch.tensor([[3, 17, 5, 60, 9]])
-    emb = params["embed"]["tok"]["table"][toks.long()]
-    pf_t, cache_t = tt.model_prefill(params, tcfg, {"tokens": toks[:, :4]},
-                                     8)
-    pf_e, cache_e = tt.model_prefill(params, tcfg, {"embeds": emb[:, :4]},
-                                     8)
-    assert torch.equal(pf_e, pf_t) and int(cache_e["length"]) == 4
-    lg_t, _ = tt.model_decode(params, tcfg, toks[:, 4], cache_t)
-    lg_e, cache_e = tt.model_decode(params, tcfg, None, cache_e,
-                                    embeds=emb[:, 4:5])
-    assert torch.equal(lg_e, lg_t) and int(cache_e["length"]) == 5
+    for cfg in (tcfg, rt.get_smoke_config("rwkv6-7b"),
+                rt.get_smoke_config("zamba2-7b")):
+        assert int(tt.init_cache(cfg, 1, 8, device="cpu")["length"]) == 0
+        params = rt.model_init(cfg, 0, device="cpu")
+        toks = torch.tensor([[3, 17, 5, 60, 9]])
+        emb = params["embed"]["tok"]["table"][toks.long()]
+        pf_t, cache_t = tt.model_prefill(params, cfg,
+                                         {"tokens": toks[:, :4]}, 8)
+        pf_e, cache_e = tt.model_prefill(params, cfg,
+                                         {"embeds": emb[:, :4]}, 8)
+        assert torch.equal(pf_e, pf_t) and int(cache_e["length"]) == 4
+        lg_t, _ = tt.model_decode(params, cfg, toks[:, 4], cache_t)
+        lg_e, cache_e = tt.model_decode(params, cfg, None, cache_e,
+                                        embeds=emb[:, 4:5])
+        assert torch.equal(lg_e, lg_t) and int(cache_e["length"]) == 5

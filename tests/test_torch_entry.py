@@ -254,8 +254,10 @@ def test_launch_serve_generates_on_cpu(capsys):
                          "cpu", "--prompt-len", "8", "--max-new", "6"])
     assert torch.equal(out, again)                 # seeded, deterministic
     assert "tok/s, cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A14"):
-        lserve.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu"])
+    # the recurrent family decodes from its state
+    out = lserve.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu",
+                       "--prompt-len", "8", "--max-new", "6"])
+    assert tuple(out.shape) == (4, 6) and out.dtype == torch.int32
 
 
 def test_launch_serve_online_trim_on_cpu():
@@ -345,8 +347,12 @@ def test_launch_train_takes_the_attention_families(arch):
                        "--chunk", "2"])
     assert res.steps_done == 2
     assert np.isfinite([h[1]["cost"] for h in res.history]).all()
-    with pytest.raises(NotImplementedError, match="A14b"):
-        ltrain.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu"])
+    # and the hybrid recurrent family (Mamba-2 + the shared block)
+    res = ltrain.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--seq", "16", "--steps", "2",
+                       "--chunk", "2"])
+    assert res.steps_done == 2
+    assert np.isfinite([h[1]["cost"] for h in res.history]).all()
 
 
 def test_launch_train_codebook_batches():

@@ -60,7 +60,8 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import rope as trope
 from repro_torch.models import transformer as tt
 
-ARCHS = list(tconfigs.PORTED)
+ARCHS = [a for a in tconfigs.PORTED              # the recurrent families:
+        if a not in ("rwkv6-7b", "zamba2-7b")]    # test_torch_recurrent.py
 LOGIT_ATOL = 2e-5
 SELF_ATOL = 5e-4
 CT_PRE_ATOL = 1e-6

@@ -93,25 +93,29 @@ def test_qwen3_config_matches_reference():
 @pytest.mark.parametrize("arch", [a for a in tconfigs.ARCH_IDS
                                   if a != "qwen3-14b"])
 def test_other_archs_raise_naming_a14(arch):
-    """The attention-family ids resolve to the reference's configs; the
-    recurrent ones (rwkv6-7b, zamba2-7b) raise and name A14b."""
-    if arch in tconfigs.PORTED:
-        assert dataclasses.asdict(rt.get_config(arch)) == \
-            dataclasses.asdict(jget_config(arch))
-        return
-    with pytest.raises(NotImplementedError, match="A14b"):
-        rt.get_config(arch)
+    """Every other id, the recurrent ones (rwkv6-7b, zamba2-7b) included,
+    is ported and resolves to the reference's config; none raises."""
+    assert arch in tconfigs.PORTED
+    assert dataclasses.asdict(rt.get_config(arch)) == \
+        dataclasses.asdict(jget_config(arch))
 
 
 def test_unknown_arch_and_other_families_raise():
+    """An unknown id raises; the recurrent families (ssm, hybrid) build,
+    run and take a cache; fsdp/seq_parallel change no value."""
     with pytest.raises(ValueError):
         rt.get_config("gpt-5")
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        cfg = rt.get_smoke_config(arch)
+        params = tt.model_init(cfg, 0, device="cpu")
+        toks = torch.from_numpy(_tokens(cfg.vocab, 2, 16))
+        assert torch.isfinite(tt.model_forward(params, cfg,
+                                               {"tokens": toks})).all()
+        cache = tt.init_cache(cfg, 2, 8, device="cpu")
+        logits, cache = tt.model_decode(params, cfg, toks[:, 0], cache)
+        assert tuple(logits.shape) == (2, cfg.vocab)
+        assert int(cache["length"]) == 1
     _, tcfg = _cfgs()
-    for kw in ({"family": "ssm"}, {"family": "hybrid"}):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tt.model_init(tcfg.replace(**kw), 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tt.init_cache(tcfg.replace(**kw), 1, 8, device="cpu")
     # fsdp/seq_parallel place tensors on a mesh: on one card, no value moves
     params = tt.model_init(tcfg, 0, device="cpu")
     toks = torch.from_numpy(_tokens(tcfg.vocab, 2, 16))
