@@ -213,6 +213,32 @@ Phases, each fatal on failure (nothing is caught):
    zeroed after prefill; zamba2: the last Mamba layer's conv tail zeroed
    after prefill, the shared block's K/V at the last position zeroed).
 
+15. The bench twins on the card (``repro_torch.benchmarks``), each with
+   the launch counters zeroed before it and read after: ``fused_probe``
+   whole (the MLP (64, 64, 10) and the qwen3-14b smoke config in f32,
+   forward and central, materialized against fused, 20 + 60 steps a run),
+   ``table3_hardware``, and ``farm_scaling`` and ``scaling_laws`` at
+   their ``--smoke`` budgets (the committed baselines').  Gates: each
+   fused run's launches equal its path's (B1 forward or B2 central, on
+   the SIMT kernel, and one B3 a step), the materializing runs launch
+   nothing; each of the first 32 steps of each fused run, run again and
+   probed from the same params and state through the plain route on the
+   card, gives the twin's C̃ bitwise and the plain route's within 1e-5,
+   which both controls (C̃ = 0, another seed's signs) miss, and B3's
+   params bitwise the plain update's of the same params, seeds and C̃
+   (another seed's update the control); the whole run's first 32 C̃
+   against the plain route's run from the same init: within 1e-5 for
+   the MLP, and for the transformer (η/Δθ = 10) within 1e-5 or, where
+   the plain route itself moves further over those steps from ``wq``
+   moved up one ulp or on the CPU (the witness), within 4× the witness;
+   ``mesh_farm_bitmatch_f32`` is 1.0; every arithmetic row (``*_seconds``,
+   ``*_wread_ratio``, ``projected_*``, ``params_*``) lies in its
+   ``check_regression`` band around ``artifacts/bench/<bench>.json``.
+   The statistical, accuracy and timing rows are printed; with ``--out
+   X.json`` all rows are written to ``X.bench/<bench>.json`` for
+   ``python -m benchmarks.check_regression --fresh X.bench --baseline
+   artifacts/bench``.
+
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
 eager torch ops.  Every phase prints its seconds.
@@ -225,6 +251,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -3335,6 +3362,252 @@ def recurrent_families(torch, rt, kernels, card, dev):
     return out, totals
 
 
+# -- phase 15: the bench twins ------------------------------------------------
+
+BENCH_CT_STEPS = CT_CHECK_STEPS     # fused C̃ against the plain route, atol
+# the rows that are arithmetic and their check_regression bands (a copy of
+# the gate's TOLERANCES entries), held against artifacts/bench/<bench>.json
+BENCH_PURE_ROWS = {
+    "table3_hardware": (("*_seconds", 0.01),),
+    "fused_probe": (("*_wread_ratio", 0.001),),
+    "farm_scaling": (("projected_*", 0.01),),
+    "scaling_laws": (("params_*", 0.001), ("projected_probe_budget_*", 0.01),
+                     ("projected_step_s_*", 0.01)),
+}
+
+
+def pure_row_gate(bench, rows):
+    """Every arithmetic row of ``bench`` within its band around the
+    committed baseline's value; returns how many were held."""
+    import fnmatch
+    base_path = ROOT / "artifacts" / "bench" / f"{bench}.json"
+    base = {r["name"]: float(r["value"])
+            for r in json.loads(base_path.read_text())["rows"]}
+    held = 0
+    for r in rows:
+        for pattern, rel in BENCH_PURE_ROWS[bench]:
+            if fnmatch.fnmatch(r["name"], pattern):
+                want = base[r["name"]]
+                if not abs(float(r["value"]) - want) <= rel * abs(want):
+                    fail(f"{bench}: {r['name']} = {r['value']} outside "
+                         f"{rel} of the committed {want}")
+                held += 1
+                break
+    if not held:
+        fail(f"{bench}: no arithmetic row to hold against its baseline")
+    return held
+
+
+def fused_probe_expected(model, mode, steps, n_layers):
+    if model == "transformer":
+        return lm_expected(n_layers, mode, steps)
+    per_step = 2                                   # two dense layers
+    return dict(perturbed_matmul=per_step * steps if mode == "forward" else 0,
+                perturbed_matmul_pair=(per_step * steps if mode == "central"
+                                       else 0),
+                mgd_update_window=steps, mgd_update=0)
+
+
+def fused_probe_gates(torch, rt, fp, runs, dev):
+    """15a's gates.  Each fused run made exactly the launches its path
+    implies, all on the SIMT kernel (f32); the materializing runs launched
+    nothing; each fused run passes ``fused_probe_ct``."""
+    steps = fp.CHUNK + fp.STEPS
+    n_layers = rt.get_smoke_config("qwen3-14b").n_layers
+    out = {}
+    for (model, mode, fused), rec in runs.items():
+        name = f"{model}_{mode}_{'fused' if fused else 'materialized'}"
+        want = (fused_probe_expected(model, mode, steps, n_layers) if fused
+                else dict.fromkeys(SOURCES, 0))
+        if rec["launches"] != want:
+            fail(f"fused_probe {name}: launches {rec['launches']} != "
+                 f"expected {want}")
+        entry = dict(steps_per_s=rec["steps_per_s"], launches=rec["launches"])
+        if fused:
+            entry.update(fused_probe_ct(torch, rt, fp, model, mode, rec,
+                                        dev, name))
+        out[name] = entry
+    return out
+
+
+# the leaf of each fused_probe model whose every element the trajectory
+# witness moves up by one ulp (C3's control moves one element of the
+# reference's wq; in central mode θ ± θ̃ can round one element's ulp away)
+BENCH_ULP_LEAF = {"mlp": lambda p: p[0]["w"],
+                  "transformer": lambda p: p["layers"]["attn"]["wq"]["w"]}
+# a fused run's whole-run C̃ gap may reach this many times its witness
+# (the factor C6's test allows the port against the reference)
+BENCH_TRAJ_FACTOR = 4.0
+
+
+def fused_probe_ct(torch, rt, fp, model, mode, rec, dev, name):
+    """The fused run ``rec``'s first BENCH_CT_STEPS steps, run again, each
+    from the kernel route's params and state.  Every step: the kernel's
+    C̃ equals the twin's run bitwise and lies within CT_ATOL of the plain
+    route's from the same state, which both controls (C̃ = 0, another
+    seed's signs) miss; and B3's updated params equal, bitwise on every
+    leaf, the plain update of the same params, seeds and C̃, which
+    another seed's plain update misses.  Then the trajectory: the twin's
+    C̃ against the plain route's run from the same init (on the card),
+    held to CT_ATOL for the MLP.  The witness is how far the plain route
+    moves from its own run over the same steps when one leaf moves up by
+    one ulp, or when it runs on the CPU; where the witness exceeds
+    CT_ATOL (the transformer at η/Δθ = 10), the gap is held to
+    BENCH_TRAJ_FACTOR times the witness, else to CT_ATOL."""
+    from repro_torch.core import mgd
+    from repro_torch.core.utils import tree_map
+    params, batch, loss, probe_fn = fp.SETUPS[model](dev)
+
+    def config(impl, seed=0):
+        return rt.DriverConfig(mode=mode, dtheta=1e-3, eta=1e-2, seed=seed,
+                               fused=True, kernel_impl=impl)
+
+    def make(impl, seed=0, device=dev):
+        return rt.driver("discrete", config(impl, seed), loss,
+                         probe_fn=probe_fn, device=device)
+
+    kern, plain, other = make(None), make("ref"), make(None, 1)
+    ref_cfg = dataclasses.replace(kern.config, kernel_impl="ref")
+    other_cfg = dataclasses.replace(ref_cfg, seed=1)
+    p, s = params, kern.init(params)
+    cts, plain_cts, other_cts = [], [], []
+    for _ in range(BENCH_CT_STEPS):
+        plain_cts.append(plain.step(p, s, batch)[2]["c_tilde"])
+        other_cts.append(other.step(p, s, batch)[2]["c_tilde"])
+        n = s.step
+        p_k, s, aux = kern.step(p, s, batch)
+        cts.append(aux["c_tilde"])
+        if not tree_equal(torch, p_k, mgd.fused_update_tau1(
+                ref_cfg, p, n, aux["c_tilde"])):
+            fail(f"fused_probe {name} step {n}: the window-update kernel's "
+                 "params differ from the plain update of the same params, "
+                 "seeds and C̃")
+        if tree_equal(torch, p_k, mgd.fused_update_tau1(
+                other_cfg, p, n, aux["c_tilde"])):
+            fail(f"fused_probe {name} step {n}: another seed's plain update "
+                 "equals the kernel's")
+        p = p_k
+    cts, plain_cts, other_cts = (torch.stack(v) for v in
+                                 (cts, plain_cts, other_cts))
+    if not torch.equal(cts, rec["c_tilde"][:BENCH_CT_STEPS]):
+        fail(f"fused_probe {name}: the rerun's C̃ differ from the twin's "
+             "run on the same route")
+    err = (cts - plain_cts).abs().max().item()
+    controls = dict(zero=plain_cts.abs().max().item(),
+                    other_seed=(other_cts - plain_cts).abs().max().item())
+    if not err <= CT_ATOL:
+        fail(f"fused_probe {name}: C̃ from the same state differ from the "
+             f"plain route by {err} > {CT_ATOL}")
+    for control, miss in controls.items():
+        if not miss > CT_ATOL:
+            fail(f"fused_probe {name}: the C̃ gate passes its {control} "
+                 f"control ({miss} <= {CT_ATOL})")
+
+    def plain_run(p0, b, device=dev):
+        drv = make("ref", device=device)
+        return rt.make_epoch(drv, BENCH_CT_STEPS, lambda i: b)(
+            p0, drv.init(p0))[2]["c_tilde"].to(dev)
+
+    def on_cpu(tree):
+        return tree_map(lambda x: x.cpu(), tree)
+
+    base = plain_run(params, batch)
+    moved = tree_map(lambda x: x.clone(), params)
+    leaf = BENCH_ULP_LEAF[model](moved)
+    leaf.copy_(torch.nextafter(leaf, torch.full_like(leaf, math.inf)))
+    ulp_gap = (plain_run(moved, batch) - base).abs().max().item()
+    cpu_gap = (plain_run(on_cpu(params), on_cpu(batch), torch.device("cpu"))
+               - base).abs().max().item()
+    witness = max(ulp_gap, cpu_gap)
+    traj = (rec["c_tilde"][:BENCH_CT_STEPS] - base).abs().max().item()
+    limit = (CT_ATOL if model == "mlp" or witness <= CT_ATOL
+             else BENCH_TRAJ_FACTOR * witness)
+    if not traj <= limit:
+        fail(f"fused_probe {name}: first {BENCH_CT_STEPS} C̃ differ from "
+             f"the plain route's run by {traj} > {limit} (witness: one "
+             f"ulp {ulp_gap}, the CPU {cpu_gap})")
+    return dict(c_tilde_max_abs_err_vs_plain_same_state=err,
+                controls_max_abs_err=controls,
+                b3_bitwise_plain_steps=BENCH_CT_STEPS,
+                c_tilde_max_abs_err_vs_plain_run=traj,
+                witness_one_ulp=ulp_gap, witness_plain_cpu=cpu_gap,
+                trajectory_limit=limit)
+
+
+def bench_twins(torch, rt, kernels, card, dev, out_dir):
+    """Phase 15: the four bench twins on the card at their smoke budgets
+    (``fused_probe`` has none and runs whole), each driven with the launch
+    counters zeroed before it and read after.  Fatal: a twin raises; the
+    bitmatch row is not 1.0; an arithmetic row leaves its band around the
+    committed baseline; a fused_probe launch count, C̃ or B3 gate misses.
+    Each twin's seconds are its own run's, before its gates.  The
+    statistical, accuracy and timing rows are printed, not gated here.
+    Returns (records, launch totals)."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import farm_scaling as fs
+    from repro_torch.benchmarks import fused_probe as fp
+    from repro_torch.benchmarks import scaling_laws as sl
+    from repro_torch.benchmarks import table3_hardware as t3
+
+    out, totals = {}, dict.fromkeys(SOURCES, 0)
+
+    def drive(bench, fn, checks=None, seed=None, smoke=False):
+        """Times ``fn() -> rows`` alone (its seconds are the twin's), then
+        runs ``checks(rows, launch counts) -> extra record``."""
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()        # the main path's, alone
+        for k, v in counts.items():
+            totals[k] += v
+        extra = checks(rows, counts) if checks else {}
+        held = pure_row_gate(bench, rows)
+        for r in rows:
+            print(json.dumps({"bench_row": bench, "name": r["name"],
+                              "value": r["value"]}), flush=True)
+        if out_dir is not None:
+            common.write_record(str(out_dir), bench, rows, seconds, seed,
+                                "cuda", smoke)
+        out[bench] = dict(seconds=seconds, launches=counts,
+                          arithmetic_rows_held=held, card=card,
+                          rows={r["name"]: r["value"] for r in rows}, **extra)
+        print(json.dumps({"phase15": bench, "seconds": seconds,
+                          "launches": counts}), flush=True)
+
+    runs = {}
+
+    def fused_probe():
+        found, _ = fp.measure(dev)
+        runs.update(found)
+        return fp.rows_of(found, dev)
+
+    def fused_probe_checks(rows, counts):
+        for name in kernels.MATMUL_WRAPPERS + ("mgd_update_window",):
+            if not counts[name]:
+                fail(f"phase 15: fused_probe launched no {name}")
+        by_route = check_routes(kernels, counts, "simt",
+                                "phase 15 fused_probe")
+        return dict(runs=fused_probe_gates(torch, rt, fp, runs, dev),
+                    launches_by_kernel=by_route)
+
+    def bitmatch(rows, counts):
+        bit = next(r["value"] for r in rows
+                   if r["name"] == "mesh_farm_bitmatch_f32")
+        if bit != 1.0:
+            fail(f"scaling_laws: mesh_farm_bitmatch_f32 = {bit}, not 1.0")
+        return {}
+
+    drive("fused_probe", fused_probe, fused_probe_checks)
+    drive("table3_hardware", lambda: t3.run(device=dev))
+    drive("farm_scaling", lambda: fs.run(seed=0, smoke=True, device=dev),
+          seed=0, smoke=True)
+    drive("scaling_laws", lambda: sl.run(seed=0, smoke=True, device=dev),
+          bitmatch, seed=0, smoke=True)
+    return out, totals
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -3495,9 +3768,18 @@ def main(argv=None) -> int:
           flush=True)
     done(14, t0)
 
+    # -- phase 15: the bench twins ------------------------------------------
+    t0 = time.perf_counter()
+    twins, twin_counts = bench_twins(
+        torch, rt, kernels, card, dev,
+        args.out.with_suffix(".bench") if args.out else None)
+    print("phase 15: " + ", ".join(
+        f"{k} {v['seconds']:.1f} s" for k, v in twins.items()), flush=True)
+    done(15, t0)
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
                    pp_mlp_counts, pp_lm_counts, serving_counts,
-                   family_counts, recurrent_counts):
+                   family_counts, recurrent_counts, twin_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -3508,7 +3790,7 @@ def main(argv=None) -> int:
                  for name in kernels.MATMUL_WRAPPERS}
     for rec in [*results.values(), *lm_results.values(), deep, imperfect,
                 pp["transformer"], serving["online"], families["13a"],
-                families["13b"], *families["13e"]]:
+                families["13b"], *families["13e"], twins["fused_probe"]]:
         for name, routes in rec.get("launches_by_kernel", {}).items():
             for r, v in routes.items():
                 by_kernel[name][r] += v
@@ -3549,7 +3831,7 @@ def main(argv=None) -> int:
             imperfect_device=imperfect, resume=resume, paper_model=paper,
             paper_cnns=cnns, probe_parallel=pp, serving=serving,
             attention_families=families, recurrent_families=recurrent,
-            phase_s=phase_s,
+            bench_twins=twins, phase_s=phase_s,
             ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

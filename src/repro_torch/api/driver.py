@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.utils import f32, tree_leaves
+from repro_torch.core.utils import epoch_loop, f32, tree_leaves
 from repro_torch.device import resolve_device
 
 Pytree = Any
@@ -426,14 +426,5 @@ def make_epoch(drv: MGDDriver, steps_per_call: int,
     ``steps_per_call`` driver iterations; iteration n uses sample index
     n // τ_x.  The counterpart of the reference's scanned epoch, as a
     Python loop."""
-    def run(params, state):
-        auxes = []
-        for _ in range(steps_per_call):
-            batch = sample_fn(state_step(state) // drv.tau_x)
-            params, state, aux = drv.step(params, state, batch)
-            auxes.append(aux)
-        stacked = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]} \
-            if auxes else {}
-        return params, state, stacked
-
-    return run
+    return epoch_loop(drv.step, steps_per_call, sample_fn,
+                      lambda state: state_step(state) // drv.tau_x)

@@ -9,10 +9,14 @@ Entry points run on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
+import subprocess
 import time
 from typing import Callable
+
+import torch
 
 from repro_torch.api import driver as build_driver, make_epoch
 from repro_torch.core import mse
@@ -70,18 +74,46 @@ def median(vals):
     return vals[len(vals) // 2] if vals else None
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
+
+
+def sync(dev) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), before a
+    clock read or a host fence."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def call_run(run: Callable, seed: int, smoke: bool, device):
+    """``run(device=...)``, with ``seed``/``smoke`` forwarded only where
+    the bench takes them, as the reference's runner does.  Returns (rows,
+    the seed used or None, whether a smoke budget ran), so that no record
+    claims a seed or a budget cut it did not use."""
+    params = inspect.signature(run).parameters
+    kwargs = {"device": device}
+    if "seed" in params:
+        kwargs["seed"] = seed
+    if "smoke" in params:
+        kwargs["smoke"] = smoke
+    return run(**kwargs), kwargs.get("seed"), kwargs.get("smoke", False)
+
+
 def bench_cli(bench: str, run: Callable, argv=None, *, doc: str,
               smoke_help: str) -> int:
     """The twins' command line: ``[--out DIR] [--smoke] [--device cpu]
-    [--seed N]``.  Runs ``run(seed, smoke, device)``, prints the rows as
+    [--seed N]``.  Runs ``run`` through ``call_run``, prints the rows as
     CSV and writes ``DIR/<bench>.json`` (``{"rows", "seconds", "seed"}``
     as the reference's runner does, plus the device and card).  Gate it,
     unedited, with ``python -m benchmarks.check_regression --fresh DIR
     --baseline artifacts/bench``."""
-    import torch
-
-    from .table2_datasets import card_line
-
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--out", default="bench_torch",
                     help=f"directory for {bench}.json")
@@ -91,19 +123,33 @@ def bench_cli(bench: str, run: Callable, argv=None, *, doc: str,
     args = ap.parse_args(argv)
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line() if args.device == "cuda" else "cpu"
     t0 = time.perf_counter()
-    rows = run(args.seed, args.smoke, args.device)
+    rows, seed, smoke = call_run(run, args.seed, args.smoke, args.device)
     seconds = time.perf_counter() - t0
     print("bench,name,value,detail")
+    print_rows(rows)
+    path, card = write_record(args.out, bench, rows, seconds, seed,
+                              args.device, smoke)
+    print(f"# {bench} done in {seconds:.1f}s ({card}) → {path}")
+    return 0
+
+
+def print_rows(rows) -> None:
+    """The rows as CSV lines under ``bench,name,value,detail``."""
     for r in rows:
         detail = str(r["detail"]).replace(",", ";")
         print(f"{r['bench']},{r['name']},{r['value']},{detail}")
-    os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"{bench}.json")
+
+
+def write_record(out: str, bench: str, rows, seconds: float, seed, device,
+                 smoke: bool):
+    """``out/<bench>.json``: the reference runner's ``{"rows", "seconds",
+    "seed"}`` plus the device, the card and the smoke flag."""
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{bench}.json")
     with open(path, "w") as f:
-        json.dump({"rows": rows, "seconds": seconds, "seed": args.seed,
-                   "device": args.device, "card": card,
-                   "smoke": args.smoke}, f, indent=1)
-    print(f"# {bench} done in {seconds:.1f}s ({card}) → {path}")
-    return 0
+        json.dump({"rows": rows, "seconds": seconds, "seed": seed,
+                   "device": str(device), "card": card, "smoke": smoke},
+                  f, indent=1)
+    return path, card

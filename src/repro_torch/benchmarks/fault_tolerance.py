@@ -50,7 +50,7 @@ from repro_torch.hardware import (ChipFarm, FaultPolicy, FaultSpec,
 from repro_torch.models.simple import mlp_init
 from repro_torch.training.train_loop import TrainLoopConfig, train_mgd
 
-from .common import bench_cli
+from .common import bench_cli, sync
 
 K = 4
 SIZES = (49, 4, 4)
@@ -199,10 +199,10 @@ def _hang_row(dev):
         p = mlp_init(0, (2, 2, 1), device=dev)
         s = mgd.init(p)
         p, s, _ = mgd.step(p, s, batch)        # step 0: warm up
-        _sync(dev)
+        sync(dev)
         t0 = time.monotonic()
         p, s, m = mgd.step(p, s, batch)        # step 1: chip 0 hangs
-        _sync(dev)
+        sync(dev)
         stall = time.monotonic() - t0
     if stall >= 0.85 * hang_s:
         raise RuntimeError(
@@ -253,11 +253,6 @@ def _resume_row(seed, dev):
             "value": 1.0 if exact else 0.0,
             "detail": "8+8 resumed == 16 uninterrupted, faults injected at "
                       "the same counter-keyed steps, healed by retries"}
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def run(seed: int = 0, smoke: bool = False, device=None):

@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -40,6 +39,8 @@ from repro_torch.models.simple import (cifar_cnn_apply, cifar_cnn_init,
 from repro_torch.training.train_loop import (classification_accuracy,
                                              train_backprop)
 
+from .common import card_line
+
 SMOKE_CUT = 100
 
 
@@ -51,16 +52,6 @@ def _mse_loss(apply_fn):
     def loss(p, b):
         return mse(apply_fn(p, b["x"]), b["y"])
     return loss
-
-
-def card_line() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return "nvidia-smi not available"
 
 
 class Runner:
@@ -113,6 +104,11 @@ class Runner:
 
 
 def run(device="cuda", smoke: bool = False):
+    """Table 2's rows."""
+    return measure(device, smoke)[0]
+
+
+def measure(device="cuda", smoke: bool = False):
     """Table 2's rows and the timing of each training run."""
     r = Runner(device, smoke)
     dev = r.device
@@ -206,7 +202,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line() if args.device == "cuda" else "cpu"
     t0 = time.perf_counter()
-    rows, runs = run(args.device, args.smoke)
+    rows, runs = measure(args.device, args.smoke)
     seconds = time.perf_counter() - t0
     print("bench,name,value,detail")
     for r in rows:

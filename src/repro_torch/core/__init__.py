@@ -2,8 +2,9 @@
 perturbations, cost, counter-keyed randomness and pytree utilities."""
 from .analog import (AnalogMGDConfig, AnalogMGDState, analog_init,
                      build_analog_step)
-from .cost import mae, mse, softmax_xent
-from .mgd import MGDConfig, MGDState, build_mgd_step, mgd_init
+from .cost import COSTS, mae, mse, softmax_xent
+from .mgd import (MGDConfig, MGDState, build_mgd_step, make_mgd_epoch,
+                  mgd_init)
 from .probe_parallel import (LocalMesh, build_probe_parallel_external_step,
                              build_probe_parallel_step, pod_seed)
 from . import (forward_grad, noise, perturbations, probe_parallel, rng,
@@ -11,7 +12,7 @@ from . import (forward_grad, noise, perturbations, probe_parallel, rng,
 
 __all__ = ["AnalogMGDConfig", "AnalogMGDState", "analog_init",
            "build_analog_step", "MGDConfig", "MGDState", "build_mgd_step",
-           "mgd_init", "mae", "mse", "softmax_xent", "forward_grad", "noise",
-           "perturbations", "rng", "utils", "LocalMesh", "pod_seed",
+           "make_mgd_epoch", "mgd_init", "mae", "mse", "softmax_xent",
+           "COSTS", "forward_grad", "noise", "perturbations", "rng", "utils", "LocalMesh", "pod_seed",
            "build_probe_parallel_step", "build_probe_parallel_external_step",
            "probe_parallel"]

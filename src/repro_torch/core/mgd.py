@@ -37,9 +37,9 @@ import torch
 from repro_torch.kernels import ops as kops
 from . import perturbations as pert
 from .probe_parallel import pod_seed
-from .utils import (f32, leaf_meta, tree_add, tree_axpy, tree_flatten,
-                    tree_leaves, tree_map, tree_scale, tree_unflatten,
-                    tree_zeros_like)
+from .utils import (epoch_loop, f32, leaf_meta, tree_add, tree_axpy,
+                    tree_flatten, tree_leaves, tree_map, tree_scale,
+                    tree_unflatten, tree_zeros_like)
 
 Pytree = Any
 
@@ -185,6 +185,30 @@ def fused_leaf_updates(cfg: MGDConfig, params, seeds_of, coefs, alpha,
     return tree_unflatten(treedef, out)
 
 
+def fused_update_tau1(cfg: MGDConfig, params, n: int, c_tilde):
+    """The fused step's update at τ_θ = 1: θ ← θ − η·C̃·θ̃/Δθ² at step
+    ``n``, θ̃ regenerated in the window-update kernel (``cfg.kernel_impl``
+    picks the kernel or its plain version) for every ndim ≥ 2 leaf."""
+    seed = _probe_seed(cfg, 0)
+    s = c_tilde * f32(1.0 / (cfg.dtheta * cfg.dtheta))
+    t = f32(-cfg.eta) * (f32(cfg.dtheta) * s)
+
+    def small(leaf, lid):
+        # sign-LAST form of leaf + (−η)·(θ̃·s): the ±1 sign commutes
+        # exactly through both roundings, so this equals the
+        # materializing path bitwise and no FMA can re-round it
+        signs = pert.rademacher_leaf(
+            leaf.shape, torch.float32, lid, step=n, seed=seed,
+            dtheta=1.0, tau_p=cfg.tau_p, device=leaf.device)
+        return (leaf.float() + signs * t).to(leaf.dtype)
+
+    def seeds_of(lid):
+        return [pert.leaf_seed(seed, n // cfg.tau_p, lid)]
+
+    return fused_leaf_updates(cfg, params, seeds_of, s.reshape(1),
+                              -cfg.eta, small)
+
+
 def _take_slots(buf: torch.Tensor, slots) -> torch.Tensor:
     """``buf[slots]`` for host-int slots, built from slices (no index
     tensor has to reach the device)."""
@@ -323,27 +347,6 @@ def build_mgd_step(
             params, batch, _probe(n, (1.0,)), step=n, tags=(1,))[0]
         return c_pert - c0, c0, c0
 
-    def fused_update_tau1(params, n, c_tilde):
-        """θ ← θ − η·C̃·θ̃/Δθ² with θ̃ regenerated in-kernel (τ_θ = 1)."""
-        seed = _probe_seed(cfg, 0)
-        s = c_tilde * INV_D2
-        t = NEG_ETA * (DTHETA * s)
-
-        def small(leaf, lid):
-            # sign-LAST form of leaf + (−η)·(θ̃·s): the ±1 sign commutes
-            # exactly through both roundings, so this equals the
-            # materializing path bitwise and no FMA can re-round it
-            signs = pert.rademacher_leaf(
-                leaf.shape, torch.float32, lid, step=n, seed=seed,
-                dtheta=1.0, tau_p=cfg.tau_p, device=leaf.device)
-            return (leaf.float() + signs * t).to(leaf.dtype)
-
-        def seeds_of(lid):
-            return [pert.leaf_seed(seed, n // cfg.tau_p, lid)]
-
-        return fused_leaf_updates(cfg, params, seeds_of, s.reshape(1),
-                                  -cfg.eta, small)
-
     def window_steps(n):
         return [n - (cfg.tau_theta - 1) - cfg.staleness + j
                 for j in range(cfg.tau_theta)]
@@ -395,7 +398,7 @@ def build_mgd_step(
             return new_params, new_state, metrics
         # tau_theta == 1 (enforced by MGDConfig): update every step
         new_params = plant.write_params(
-            fused_update_tau1(params, n, c_tilde), step=n, prev=params)
+            fused_update_tau1(cfg, params, n, c_tilde), step=n, prev=params)
         new_state = MGDState(step=n + 1, c0=c0, g=None, replay_c=None, m=None,
                              metric_cost=cost_metric)
         return new_params, new_state, metrics
@@ -470,3 +473,16 @@ def build_mgd_step(
         return new_params, new_state, metrics
 
     return step_fn
+
+
+def make_mgd_epoch(loss_fn, cfg: MGDConfig, steps_per_call: int,
+                   sample_fn: Callable[[int], Any], *,
+                   probe_fn: Optional[Callable] = None, plant=None):
+    """``run(params, state) -> (params, state, stacked_metrics)`` running
+    ``steps_per_call`` MGD iterations of ``build_mgd_step``; iteration n
+    uses sample index ``state.step // cfg.tau_x`` (τ_x).  The twin of the
+    reference's scanned epoch, as a Python loop; the generic equivalent
+    for any driver is ``repro_torch.api.make_epoch``."""
+    return epoch_loop(
+        build_mgd_step(loss_fn, cfg, probe_fn=probe_fn, plant=plant),
+        steps_per_call, sample_fn, lambda state: state.step // cfg.tau_x)

@@ -146,6 +146,11 @@ def tree_norm(a) -> torch.Tensor:
     return torch.sqrt(tree_dot(a, a))
 
 
+def tree_cast(tree, dtype):
+    """Every leaf cast to ``dtype``."""
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
 def tree_zeros_like(tree, dtype=None):
     return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
                                           device=x.device), tree)
@@ -154,3 +159,21 @@ def tree_zeros_like(tree, dtype=None):
 def tree_select(pred: bool, a, b):
     """``a`` if the host predicate holds, else ``b``."""
     return a if pred else b
+
+
+def epoch_loop(step_fn, steps_per_call: int, sample_fn, sample_index):
+    """``run(params, state) -> (params, state, stacked)`` making
+    ``steps_per_call`` calls of ``step_fn(params, state, batch) ->
+    (params, state, metrics)``, each on ``sample_fn(sample_index(state))``;
+    ``stacked`` holds every call's metrics stacked along a new first axis."""
+    def run(params, state):
+        metrics = []
+        for _ in range(steps_per_call):
+            batch = sample_fn(sample_index(state))
+            params, state, m = step_fn(params, state, batch)
+            metrics.append(m)
+        stacked = ({k: torch.stack([m[k] for m in metrics])
+                    for k in metrics[0]} if metrics else {})
+        return params, state, stacked
+
+    return run

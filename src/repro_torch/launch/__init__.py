@@ -1,2 +1,3 @@
 """Command-line entry points: ``python -m repro_torch.launch.train`` and
-``python -m repro_torch.launch.serve``."""
+``python -m repro_torch.launch.serve``; ``specs`` gives parameter and
+input shapes with nothing allocated."""

@@ -31,13 +31,20 @@ from repro_torch.core.utils import f32
 from repro_torch.kernels import ops as kops
 
 
+def gen_device(gen):
+    """The device ``gen`` draws on.  ``None`` stands for the meta device
+    (``model_init(..., device="meta")``: shapes and dtypes, nothing drawn
+    or allocated), where torch has no generator."""
+    return torch.device("meta") if gen is None else gen.device
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias=False,
                dtype=torch.float32, scale=None, device=None):
     """W ~ N(0, 1)·scale (default 1/sqrt(d_in)) drawn from ``gen`` on the
     generator's device, then placed on ``device``; zero bias."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device) * scale
+                    device=gen_device(gen)) * scale
     p = {"w": w.to(dtype).to(device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
@@ -89,7 +96,7 @@ def groupnorm_heads(p, x, n_heads: int, eps=1e-5):
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32, device=None):
     table = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                        device=gen.device) * 0.02
+                        device=gen_device(gen)) * 0.02
     return {"table": table.to(dtype).to(device)}
 
 
@@ -189,7 +196,7 @@ def conv2d_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
     ~ N(0, 1)/sqrt(kh·kw·c_in) drawn from ``gen``; zero bias."""
     scale = 1.0 / math.sqrt(kh * kw * c_in)
     w = torch.randn((kh, kw, c_in, c_out), generator=gen,
-                    dtype=torch.float32, device=gen.device) * scale
+                    dtype=torch.float32, device=gen_device(gen)) * scale
     return {"w": w.to(dtype).to(device),
             "b": torch.zeros((c_out,), dtype=dtype, device=device)}
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import dense, dense_init, rmsnorm, rmsnorm_init
+from .layers import dense, dense_init, gen_device, rmsnorm, rmsnorm_init
 from .linear_attention import chunked_scalar_decay, step_scalar_decay
 
 CONV_K = 4
@@ -38,7 +38,7 @@ def mamba2_block_init(gen: torch.Generator, cfg, dtype, device=None):
     d = cfg.d_model
     d_inner, head_p, n_heads, n_state, conv_dim = _dims(cfg)
     conv_w = torch.randn((CONV_K, conv_dim), generator=gen,
-                         dtype=torch.float32, device=gen.device) * 0.2
+                         dtype=torch.float32, device=gen_device(gen)) * 0.2
 
     def f32(fill):
         return torch.full((n_heads,), fill, dtype=torch.float32,

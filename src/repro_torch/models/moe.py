@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.utils import f32
-from .layers import dense, dense_init, full_f32_matmul, glu_mlp, glu_mlp_init
+from .layers import (dense, dense_init, full_f32_matmul, gen_device, glu_mlp,
+                     glu_mlp_init)
 
 _RECORDERS = []
 
@@ -65,7 +66,7 @@ def moe_init(gen: torch.Generator, cfg, dtype, device=None):
         out = torch.empty((e, d_in, d_out), dtype=dtype, device=device)
         for i in range(e):
             out[i] = (torch.randn((d_in, d_out), generator=gen,
-                                  dtype=torch.float32, device=gen.device)
+                                  dtype=torch.float32, device=gen_device(gen))
                       * scale).to(dtype)
         return out
 

@@ -16,8 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import (dense, dense_init, groupnorm_heads, layernorm,
-                     layernorm_init)
+from .layers import (dense, dense_init, gen_device, groupnorm_heads,
+                     layernorm, layernorm_init)
 from .linear_attention import chunked_vector_decay, step_vector_decay
 
 W_LORA_DIM = 64
@@ -31,7 +31,7 @@ def rwkv6_block_init(gen: torch.Generator, cfg, dtype, device=None):
     dh = d // h
 
     def draw(shape, fn, scale=1.0):
-        x = fn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        x = fn(shape, generator=gen, dtype=torch.float32, device=gen_device(gen))
         return (x * scale).to(dtype).to(device)
 
     def mu():

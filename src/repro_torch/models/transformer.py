@@ -46,7 +46,7 @@ waiting for the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -267,10 +267,22 @@ def _positions(cfg: ArchConfig, batch, s, b, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _generator(seed: int, layer: int, device) -> torch.Generator:
+def _generator(seed: int, layer: int, device) -> Optional[torch.Generator]:
+    """The generator of (seed, layer) on ``device``; ``None`` on the meta
+    device, which has none (the init functions then draw nothing)."""
+    if device.type == "meta":
+        return None
     gen = torch.Generator(device=device)
     gen.manual_seed(leaf_seed(seed, layer, _INIT_TAG))
     return gen
+
+
+def _init_device(device) -> torch.device:
+    """``resolve_device``, plus ``"meta"``: shapes and dtypes with nothing
+    allocated (``launch/specs.py``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
 
 
 def _hybrid_plan(cfg: ArchConfig):
@@ -298,8 +310,9 @@ def model_init(cfg: ArchConfig, seed: int, *, device=None):
     banks are filled one layer at a time, so the peak is the params plus
     one layer.  The draws match neither the JAX package's threefry nor
     another device's; parity tests carry the reference's params with
-    ``repro_torch.convert``."""
-    dev = resolve_device(device)
+    ``repro_torch.convert``.  ``device="meta"`` gives the tree's shapes and
+    dtypes, nothing drawn or allocated."""
+    dev = _init_device(device)
     dtype = cfg.torch_dtype
     params: Dict[str, Any] = {
         "embed": _embed_init(_generator(seed, _EMBED_LAYER, dev), cfg, dtype,
@@ -317,7 +330,8 @@ def model_init(cfg: ArchConfig, seed: int, *, device=None):
         return params
     stacked = [torch.empty((n_layers,) + tuple(a.shape), dtype=a.dtype,
                            device=dev) for a in leaves]
-    for layer in range(n_layers):
+    # on the meta device every copy is a no-op: the shapes are all there is
+    for layer in range(n_layers if dev.type != "meta" else 0):
         if layer:
             leaves = tree_flatten(init_one(_generator(seed, layer, dev),
                                            cfg, dtype, dev))[0]
@@ -595,8 +609,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
     dr]}``; for ``ssm`` ``{"state"}`` (RWKV-6's, f32, stacked on L); for
     ``hybrid`` ``{"state"}`` (Mamba-2's, f32, stacked on the blocks) and
     ``{"k", "v": [G, B, max_len, KVH, dh]}``; with ``"length"``: a 0-d
-    int32 host tensor."""
-    dev = resolve_device(device)
+    int32 host tensor.  ``device="meta"`` allocates nothing."""
+    dev = _init_device(device)
     n_kv = cfg.n_layers
     cache = {}
     if cfg.family == "ssm":

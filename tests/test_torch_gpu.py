@@ -1103,3 +1103,50 @@ def test_recurrent_fused_step_card_matches_cpu(cuda_device, arch):
     (c0, p0), (c1, p1) = runs
     assert max(abs(a - b) for a, b in zip(c0, c1)) <= 1e-5
     assert max((a - b).abs().max().item() for a, b in zip(p0, p1)) <= 1e-4
+
+
+# --- the bench twins' slice: shapes with no allocation, fused_probe ---------
+
+
+@pytest.mark.gpu
+def test_abstract_params_on_the_cards_machine(cuda_device):
+    """``launch/specs.abstract_params`` allocates nothing (the card's
+    memory does not move) and counts what the committed ``scaling_laws``
+    baseline records."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.launch.specs import abstract_params
+
+    before = torch.cuda.memory_allocated(cuda_device)
+    counts = {}
+    for arch in ("qwen3-14b", "deepseek-v3-671b"):
+        leaves = tree_leaves(abstract_params(get_config(arch)))
+        assert {x.device.type for x in leaves} == {"meta"}
+        counts[arch] = sum(x.numel() for x in leaves)
+    assert torch.cuda.memory_allocated(cuda_device) == before
+    assert counts == {"qwen3-14b": 14_768_307_200,
+                      "deepseek-v3-671b": 703_797_812_224}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["forward", "central"])
+def test_fused_probe_mlp_rows_launch_the_kernels(cuda_device, mode):
+    """The fused-probe twin's MLP runs on the card: the fused run
+    launches B1 (forward) or B2 (central) twice a step, on the SIMT
+    kernel, and B3 once a step; the materializing run launches nothing;
+    their first C̃ agree within 1e-5."""
+    from repro_torch.benchmarks import fused_probe as fp
+
+    steps = fp.CHUNK + fp.STEPS
+    kernels.reset_launch_counts()
+    mat = fp.bench_one("mlp", mode, False, cuda_device)
+    fus = fp.bench_one("mlp", mode, True, cuda_device)
+    matmul = "perturbed_matmul" if mode == "forward" else \
+        "perturbed_matmul_pair"
+    assert set(mat["launches"].values()) == {0}
+    assert fus["launches"][matmul] == 2 * steps
+    assert fus["launches"]["mgd_update_window"] == steps
+    assert kernels.route_launch_counts()[matmul]["simt"] == 2 * steps
+    assert fus["steps_per_s"] > 0 and mat["steps_per_s"] > 0
+    assert (fus["c_tilde"][:8] - mat["c_tilde"][:8]).abs().max().item() \
+        <= 1e-5

@@ -25,6 +25,9 @@ Tolerances, stated in each test:
 * the reference's own tests, twinned: chunked against the step
   recurrence within 2e-3, prefill + decode against the full forward
   below 5e-4.
+* rwkv6 at 32 layers in f32 (ROADMAP C6): the port's decode-vs-forward
+  error within ``DECODE_DEPTH_FACTOR`` (4×) of the reference's own, both
+  in units of 2⁻¹⁶·max|logit|.
 * θ̃ of the materializing probe and the first window update (B3): bitwise
   over both converted trees (28 and 21 leaves, in JAX's flatten order).
 * 12 fused central MGD steps against the reference's driver: C̃ within
@@ -79,6 +82,8 @@ RECURRENCE_ATOL = 2e-3
 CT_RUN_ATOL = 1e-2
 PARAM_RUN_ATOL = 2e-2
 TRACKED = {"rwkv6-7b": 7, "zamba2-7b": 9}    # steps those two hold (measured)
+DECODE_DEPTH_LAYERS = 32        # rwkv6-7b's full depth
+DECODE_DEPTH_FACTOR = 4.0       # port's error against the reference's own
 B = 2
 # leaves the reference initializes to a constant, and the seeded values
 # both packages get instead: (mean, std)
@@ -450,6 +455,65 @@ def test_prefill_decode_matches_full_forward(arch):
         lg, cache = tt.model_decode(params, tcfg, toks[:, t], cache)
         errs.append((lg - full[:, t]).abs().max().item())
     assert max(errs) < SELF_ATOL, max(errs)
+
+
+def _decode_error_in_limits(fwd, prefill, decode, toks):
+    """max |teacher-forced decode − full forward| over a 16-token prefill
+    and 16 decode steps, in units of 2⁻¹⁶·max|logit| of the forward."""
+    full = fwd(toks)
+    pf, cache = prefill(toks[:, :16])
+    errs = [np.abs(pf - full[:, :16]).max()]
+    for t in range(16, 32):
+        lg, cache = decode(toks[:, t], cache)
+        errs.append(np.abs(lg - full[:, t]).max())
+    return float(max(errs) / (2.0 ** -16 * np.abs(full).max()))
+
+
+def test_rwkv6_full_depth_decode_error_is_the_references():
+    """ROADMAP C6: rwkv6 at its 32 layers, f32, from the reference's
+    params.  Decode against the full forward misses 2⁻¹⁶·max|logit| in
+    both packages (the model amplifies rounding with depth); the port's
+    error must stay within DECODE_DEPTH_FACTOR of the reference's own,
+    which a port fault in the recurrent decode would exceed."""
+    jcfg, tcfg = _cfgs("rwkv6-7b", n_layers=DECODE_DEPTH_LAYERS,
+                       dtype="float32")
+    ref = _ref_params(jcfg, fill=False)
+    params = _t(ref)
+    toks = _tokens(jcfg.vocab, B, 32, seed=3)
+
+    def jfwd(t):
+        return np.asarray(jt.model_forward(ref, jcfg,
+                                           {"tokens": jnp.asarray(t)}))
+
+    def jprefill(t):
+        lg, cache = jt.model_prefill(ref, jcfg, {"tokens": jnp.asarray(t)},
+                                     48)
+        return np.asarray(lg), cache
+
+    def jdecode(tok, cache):
+        lg, cache = jt.model_decode(ref, jcfg, jnp.asarray(tok), cache)
+        return np.asarray(lg), cache
+
+    def tfwd(t):
+        return tt.model_forward(params, tcfg, {
+            "tokens": torch.from_numpy(np.ascontiguousarray(t))}).numpy()
+
+    def tprefill(t):
+        lg, cache = tt.model_prefill(params, tcfg, {
+            "tokens": torch.from_numpy(np.ascontiguousarray(t))}, 48)
+        return lg.numpy(), cache
+
+    def tdecode(tok, cache):
+        lg, cache = tt.model_decode(params, tcfg, torch.from_numpy(
+            np.ascontiguousarray(tok)), cache)
+        return lg.numpy(), cache
+
+    want = _decode_error_in_limits(jfwd, jprefill, jdecode, toks)
+    got = _decode_error_in_limits(tfwd, tprefill, tdecode, toks)
+    print(f"rwkv6 {DECODE_DEPTH_LAYERS} layers, f32, decode vs forward in "
+          f"2^-16 max|logit|: reference {want:.3f}, port {got:.3f}")
+    assert want > 1.0          # the amplification the port inherits
+    assert got <= DECODE_DEPTH_FACTOR * want, (got, want)
 
 
 def test_serve_batch_ragged():
