@@ -239,6 +239,30 @@ Phases, each fatal on failure (nothing is caught):
    ``python -m benchmarks.check_regression --fresh X.bench --baseline
    artifacts/bench``.
 
+16. The paper's figure benches (``hardware_plants``, ``fig4_equivalence``
+   … ``fig8_noise``), which run the unfused driver and launch no kernel:
+   the launch counters are zeroed before the phase and it fails if any
+   kernel launched.  16a: each of hardware_plants' XOR plant kinds (ideal,
+   σ_C, σ_θ, σ_a, 8-bit DAC, the same with τ_w = 4, 8-bit ADC round and
+   stochastic, central) runs FIG_GATE_STEPS steps of its row's driver on
+   the card, each repeated on the CPU from the card's params, state and
+   batch: C̃ within 1e-5 at every step; the σ_C, σ_θ, stochastic-ADC and
+   σ_a draws bitwise the CPU's; steps/s of each kind on both.  16b: cut
+   calls of the twins' own functions (``time_to_solve_xor(max_steps=,
+   chunk=)``, ``_nist_accuracy(steps=, chunk=)``, ``_bound_ratio(writes=)``,
+   ``_mgd_curve(iters=, chunk=)``, backprop, ``_angles(seeds=, iters=)``,
+   ``train_until``) covering the NIST7x7 device path, the bound ratio,
+   fig4's τ = 100 curve, fig5's angles at 100 and 1000 steps, fig6's
+   batch-4 path, Walsh and sinusoidal codes at τ_x = 250, fig9 at
+   τ_θ = 100 and fig10's defects, each on the card and on the CPU and
+   printed side by side, not gated; where they differ, the witness (the
+   CPU call from layer 0's W × (1 + 2⁻²⁰)) is printed too.  16c: the
+   ``*_projected_s`` rows equal ``artifacts/bench/hardware_plants.json``'s
+   exactly.  Printed: steps/s by kind on the card and the CPU, and each
+   twin's whole budget in steps (from the committed baselines' solved
+   counts, or the reference's budgets as an upper bound) and projected
+   seconds at those rates.
+
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
 eager torch ops.  Every phase prints its seconds.
@@ -3608,6 +3632,499 @@ def bench_twins(torch, rt, kernels, card, dev, out_dir):
     return out, totals
 
 
+# -- phase 16: the paper's figure benches -------------------------------------
+
+# 16a's plant kinds: hardware_plants' XOR devices, by row name
+PLANT_KINDS = ("ideal", "sigma_c_1e-3", "sigma_theta_0.1", "sigma_a_0.15",
+               "dac8", "dac8_tauw4", "adc8_round", "adc8_stoch")
+FIG_GATE_STEPS = 200        # card steps, each repeated on the CPU
+FIG_RATE_STEPS = 200        # steps timed a kind and device
+FIG_STEPS = 600             # 16b's XOR budgets: max_steps, iters
+FIG_CHUNK = 300
+FIG_NIST_STEPS = 200        # _nist_accuracy's steps and chunk
+FIG_WRITES = 25             # _bound_ratio's writes (τ_θ = 8: 200 steps)
+FIG_ANGLE_ITERS = 1000      # fig5's checkpoints 100 and 1000
+# 16a's update gate, card vs CPU from the same state: a C̃ gap moves each
+# param by η/Δθ = 100 times it (θ ← θ − η·C̃·s/Δθ), plus the f32 rounding
+# of |θ| ≲ 8; where the writes land on a DAC grid, bitwise
+FIG_UPDATE_GAIN = 1.0 / 1e-2
+FIG_PARAM_ATOL = 1e-6
+WITNESS_BUMP = 1.0 + 2.0 ** -20     # layer 0's W, the witness's init
+
+
+def to_device(torch, tree, dev):
+    """``tree`` (params, a batch, an ``MGDState``) with its tensors on
+    ``dev``; host ints stay as they are."""
+    from repro_torch.core.utils import tree_map
+    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def timed_steps(torch, rt, drv, dev, steps):
+    """Steps/s of ``steps`` steps of ``drv`` on XOR (batch 1) from the
+    port's seed-0 init, through ``make_epoch``."""
+    from repro_torch.benchmarks.common import sync
+    from repro_torch.data import tasks
+    from repro_torch.data.pipeline import dataset_sampler
+    x, y = tasks.xor_dataset(device=dev)
+    p = rt.mlp_init(0, (2, 2, 1), device=dev)
+    run = rt.make_epoch(drv, steps, dataset_sampler(x, y, 1))
+    state = drv.init(p)
+    sync(dev)
+    t0 = time.perf_counter()
+    p, state, aux = run(p, state)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    if not bool(torch.isfinite(aux["cost"]).all()):
+        fail(f"phase 16: a cost went non-finite on {dev}")
+    return steps / dt
+
+
+def plant_kind_gate(torch, rt, hp, kind, dev):
+    """16a for one plant kind: FIG_GATE_STEPS steps of the XOR row's driver
+    (Δθ = 1e-2, η = 1, batch 1, seed 0) on the card, each repeated on the
+    CPU from the card's params, state and batch; C̃ within CT_ATOL at every
+    step, and the update (the DAC's quantize and clip, τ_w's slow write,
+    σ_θ's write noise) within FIG_UPDATE_GAIN × that step's C̃ gap +
+    FIG_PARAM_ATOL, bitwise on a DAC.  Then the steps/s of each device's
+    driver alone."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.data import tasks
+    from repro_torch.data.pipeline import dataset_sampler
+    cpu = torch.device("cpu")
+    drvs = []
+    for where in (dev, cpu):
+        plant, mode = hp.xor_plant(kind, 0, where)
+        drvs.append(rt.driver("discrete", rt.DriverConfig(
+            dtheta=1e-2, eta=1.0, mode=mode), None, plant=plant,
+            device=where))
+    drv, ref = drvs
+    on_grid = getattr(plant, "bits", None) is not None
+    x, y = tasks.xor_dataset(device=dev)
+    sample = dataset_sampler(x, y, 1)
+    p = rt.mlp_init(0, (2, 2, 1), device=dev)
+    s = drv.init(p)
+    ct_gap = p_gap = 0.0
+    differ = 0
+    for step in range(FIG_GATE_STEPS):
+        b = sample(s.step)
+        p_ref, _, a_ref = ref.step(*(to_device(torch, t, cpu)
+                                     for t in (p, s, b)))
+        p, s, aux = drv.step(p, s, b)
+        ct = abs(aux["c_tilde"].item() - a_ref["c_tilde"].item())
+        gap = max((a.cpu() - r).abs().max().item()
+                  for a, r in zip(tree_leaves(p), tree_leaves(p_ref)))
+        limit = 0.0 if on_grid else FIG_UPDATE_GAIN * ct + FIG_PARAM_ATOL
+        if not gap <= limit:
+            fail(f"phase 16 {kind}: the update at step {step} on the card "
+                 f"against the CPU's from the same state differs by {gap} > "
+                 f"{limit} (C̃ gap {ct})")
+        differ += int(ct > 0 or gap > 0)
+        ct_gap, p_gap = max(ct_gap, ct), max(p_gap, gap)
+        if not bool(torch.isfinite(aux["cost"])):
+            fail(f"phase 16 {kind}: a cost went non-finite")
+    if not ct_gap <= CT_ATOL:
+        fail(f"phase 16 {kind}: C̃ on the card against the CPU from the "
+             f"same state differ by {ct_gap} > {CT_ATOL}")
+    return dict(steps=FIG_GATE_STEPS, c_tilde_max_gap=ct_gap,
+                c_tilde_limit=CT_ATOL, param_max_gap=p_gap,
+                param_limit="bitwise" if on_grid else
+                f"{FIG_UPDATE_GAIN:g} x C̃ gap + {FIG_PARAM_ATOL:g}",
+                steps_differing=differ,
+                card_steps_per_s=timed_steps(torch, rt, drv, dev,
+                                             FIG_RATE_STEPS),
+                cpu_steps_per_s=timed_steps(torch, rt, ref, cpu,
+                                            FIG_RATE_STEPS))
+
+
+def fig_draw_checks(torch, rt, hp, dev):
+    """The devices' draws on the card bitwise the CPU's: σ_C readout noise,
+    σ_θ writes (which must move the params), the stochastic ADC's codes and
+    the σ_a defects."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.hardware import mlp_device_fns
+    cpu = torch.device("cpu")
+
+    def pair(kind):
+        return (hp.xor_plant(kind, 0, dev)[0],
+                hp.xor_plant(kind, 0, cpu)[0])
+
+    checked = dict.fromkeys(("sigma_c", "sigma_theta", "adc_stochastic",
+                             "sigma_a"), 0)
+    pc, ph = pair("sigma_c_1e-3")
+    zc, zh = torch.zeros((), device=dev), torch.zeros(())
+    for step in range(4):
+        for tag in range(2):
+            if not torch.equal(pc._noisy(zc, step, tag).cpu(),
+                               ph._noisy(zh, step, tag)):
+                fail(f"phase 16: σ_C readout at ({step}, {tag}) differs "
+                     "between the card and the CPU")
+            checked["sigma_c"] += 1
+    pc, ph = pair("sigma_theta_0.1")
+    p = rt.mlp_init(0, (2, 2, 1), device=dev)
+    for step in (0, 1, 7):
+        wc = tree_leaves(pc.write_params(p, step=step))
+        wh = tree_leaves(ph.write_params(to_device(torch, p, cpu),
+                                         step=step))
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(wc, wh)):
+            fail(f"phase 16: σ_θ write at step {step} differs between the "
+                 "card and the CPU")
+        if all(torch.equal(a, b) for a, b in zip(wc, tree_leaves(p))):
+            fail(f"phase 16: the σ_θ write at step {step} moved nothing")
+        checked["sigma_theta"] += 1
+    pc, ph = pair("adc8_stoch")
+    for step in range(8):
+        for tag in range(2):
+            cost = 0.1234 + 0.01 * step
+            a = pc._adc(torch.tensor(cost, device=dev), step, tag).cpu()
+            if not torch.equal(a, ph._adc(torch.tensor(cost), step, tag)):
+                fail(f"phase 16: the stochastic ADC's code at ({step}, "
+                     f"{tag}) differs between the card and the CPU")
+            checked["adc_stochastic"] += 1
+    dc = mlp_device_fns((2, 2, 1), sigma_a=0.15, device_seed=0,
+                        device=dev)[2]
+    dh = mlp_device_fns((2, 2, 1), sigma_a=0.15, device_seed=0,
+                        device=cpu)[2]
+    for a, b in zip(tree_leaves(dc), tree_leaves(dh)):
+        if not torch.equal(a.cpu(), b):
+            fail("phase 16: the σ_a defects differ between the card and "
+                 "the CPU")
+        checked["sigma_a"] += 1
+    return checked
+
+
+@contextlib.contextmanager
+def bumped_init(mods):
+    """Every ``mlp_init`` of ``mods`` returns layer 0's W × WITNESS_BUMP:
+    the witness's init."""
+    from repro_torch.models.simple import mlp_init
+
+    def bumped(seed, sizes, *, device=None):
+        p = mlp_init(seed, sizes, device=device)
+        p[0]["w"] = p[0]["w"] * WITNESS_BUMP
+        return p
+
+    saved = [(m, m.mlp_init) for m in mods]
+    for m, _ in saved:
+        m.mlp_init = bumped
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.mlp_init = f
+
+
+def fig_calls(rt):
+    """16b's cut calls of the twins' own per-run functions: name → (the
+    modules whose ``mlp_init`` the call reads, fn(dev) → value, steps)."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import fig4_equivalence as f4
+    from repro_torch.benchmarks import fig5_angle as f5
+    from repro_torch.benchmarks import fig7_perturbations as f7
+    from repro_torch.benchmarks import hardware_plants as hp
+    from repro_torch.core import MGDConfig
+    from repro_torch.data import tasks
+    from repro_torch.data.pipeline import dataset_sampler
+
+    def xor_device(kind):
+        def call(dev):
+            plant, mode = hp.xor_plant(kind, 0, dev)
+            return common.time_to_solve_xor(
+                rt.DriverConfig(dtheta=1e-2, eta=1.0, mode=mode), 0,
+                max_steps=FIG_STEPS, chunk=FIG_CHUNK, plant=plant,
+                device=dev)
+        return (common,), call, FIG_STEPS
+
+    def xor_cfg(cfg, plant_fn=None):
+        def call(dev):
+            return common.time_to_solve_xor(
+                cfg, 0, max_steps=FIG_STEPS, chunk=FIG_CHUNK,
+                plant=plant_fn(dev) if plant_fn else None, device=dev)
+        return (common,), call, FIG_STEPS
+
+    def nist(dev):
+        plant, defects = hp._nist_plant(hp.NIST_DEVICES[1][1], {}, 0, dev)
+        return hp._nist_accuracy(plant, defects, 0, steps=FIG_NIST_STEPS,
+                                 chunk=FIG_NIST_STEPS, device=dev)
+
+    def angles(dev):
+        x, y = tasks.parity_dataset(2, device=dev)
+        got = f5._angles((2, 2, 1), {"x": x, "y": y}, seeds=1,
+                         iters=FIG_ANGLE_ITERS, device=dev)
+        return [got[t] for t in sorted(got)]
+
+    def fig10(dev):
+        plant = rt.hardware.noisy_mlp_plant((2, 2, 1), sigma_a=0.25,
+                                            device_seed=0, device=dev)
+        x, y = tasks.xor_dataset(device=dev)
+        _, steps, ok = common.train_until(
+            None, common.mlp_init(0, (2, 2, 1), device=dev),
+            MGDConfig(dtheta=1e-2, eta=1.0, seed=0),
+            dataset_sampler(x, y, 1), max_steps=FIG_STEPS,
+            threshold_fn=lambda p: float(plant.loss_fn(
+                p, {"x": x, "y": y})) < 0.05,
+            chunk=FIG_CHUNK, plant=plant, device=dev)
+        return steps if ok else None
+
+    def sigma_theta_plant(dev):
+        return rt.hardware.noisy_mlp_plant((2, 2, 1), sigma_theta=0.1,
+                                           dtheta=1e-2, device_seed=0,
+                                           device=dev)
+
+    calls = {f"hardware_plants_xor_{k}": xor_device(k)
+             for k in ("ideal", "sigma_a_0.15", "dac8_tauw4", "adc8_stoch")}
+    calls.update({
+        "hardware_plants_nist7x7_noisy": ((hp,), nist, FIG_NIST_STEPS),
+        "hardware_plants_bound_wtau4_tautheta8": (
+            (hp,), lambda dev: hp._bound_ratio(4.0, 8, 0, writes=FIG_WRITES,
+                                               device=dev), 8 * FIG_WRITES),
+        "fig4_mgd_tau_100": ((f4,), lambda dev: f4._mgd_curve(
+            100, 0, iters=FIG_STEPS, chunk=FIG_CHUNK, device=dev),
+            FIG_STEPS),
+        "fig4_backprop": ((f4,), lambda dev: f4._backprop_final(0, device=dev),
+                          4000),
+        "fig5_parity2_angles": ((f5,), angles, FIG_ANGLE_ITERS),
+        "fig6_batch4_tau16": xor_cfg(MGDConfig(dtheta=1e-2, eta=0.5,
+                                               tau_theta=16, tau_x=4)),
+        "fig7_walsh": xor_cfg(f7.config("walsh")),
+        "fig7_sinusoidal": xor_cfg(f7.config("sinusoidal")),
+        "fig9_tau100_sigma_theta_0.1": xor_cfg(
+            MGDConfig(dtheta=1e-2, eta=1.0 / 100, tau_theta=100),
+            sigma_theta_plant),
+        "fig10_sigma_a_0.25": ((common,), fig10, FIG_STEPS),
+    })
+    return calls
+
+
+def fig_twin_calls(torch, rt, dev):
+    """16b: each call on the card, then on the CPU; where the two differ,
+    the witness: the CPU call again from layer 0's W × (1 + 2⁻²⁰)."""
+    from repro_torch.benchmarks.common import sync
+    cpu = torch.device("cpu")
+    out = {}
+    for name, (mods, call, steps) in fig_calls(rt).items():
+        rec = dict(steps=steps)
+        for where, key in ((dev, "card"), (cpu, "cpu")):
+            sync(where)
+            t0 = time.perf_counter()
+            rec[key] = call(where)
+            sync(where)
+            rec[f"{key}_s"] = time.perf_counter() - t0
+        if rec["card"] != rec["cpu"]:
+            with bumped_init(mods):
+                rec["witness_cpu"] = call(cpu)
+        out[name] = rec
+        print(json.dumps({"phase16_call": name, **rec}), flush=True)
+    return out
+
+
+FIG_TWINS = ("hardware_plants", "fig4_equivalence", "fig5_angle",
+             "fig6_tau_theta", "fig7_perturbations", "fig8_noise")
+
+# the 16b calls whose steps/s stand for a kind of step in the whole budgets
+FIG_RATE_CALLS = {"nist": "hardware_plants_nist7x7_noisy",
+                  "bound_ratio": "hardware_plants_bound_wtau4_tautheta8",
+                  "fig4_tau100": "fig4_mgd_tau_100",
+                  "backprop": "fig4_backprop",
+                  "angle": "fig5_parity2_angles",
+                  "fig9_tau100": "fig9_tau100_sigma_theta_0.1"}
+
+
+def rate_kind(plant, cfg):
+    """The 16a plant kind whose steps/s a training run on ``plant`` under
+    ``cfg`` goes at (fig9's τ_θ = 100 through σ_θ: its 16b call's)."""
+    if plant is None:
+        return "ideal"
+    meta = plant.meta
+    if meta.adc_bits:
+        return ("adc8_stoch" if plant.adc_mode == "stochastic"
+                else "adc8_round")
+    if meta.weight_bits:
+        return "dac8_tauw4" if plant.write_tau else "dac8"
+    if meta.write_noise:
+        return ("fig9_tau100" if (cfg.tau_theta or 1) > 1
+                else "sigma_theta_0.1")
+    if meta.cost_noise:
+        return "sigma_c_1e-3"
+    return "sigma_a_0.15" if meta.sigma_a else "ideal"
+
+
+def dry_run(name):
+    """The runs twin ``name``'s own ``run()`` makes at its whole budget,
+    without training: ``train_until`` (the twin's and ``common``'s, which
+    ``time_to_solve_xor`` calls) and the per-run functions that train on
+    their own replaced by recorders that report a run which did not solve.
+    Returns (rows, runs): each run dict(fn, steps, chunk, kind), in call
+    order."""
+    import importlib
+    import inspect
+    import types
+    from repro_torch.benchmarks import common
+    mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    runs = []
+
+    def train_until(loss_fn, params, cfg, sample_fn, *, max_steps,
+                    threshold_fn, chunk=2000, plant=None, **kw):
+        runs.append(dict(fn="train_until", steps=max_steps, chunk=chunk,
+                         kind=rate_kind(plant, cfg)))
+        return params, max_steps, False
+
+    def recorder(fn, steps_of, result):
+        sig = inspect.signature(fn)
+
+        def record(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            steps, kind = steps_of(args.arguments)
+            runs.append(dict(fn=fn.__name__, steps=steps, chunk=None,
+                             kind=kind))
+            return result(args.arguments)
+        return record
+
+    patches = [(common, "train_until", train_until)]
+    if hasattr(mod, "train_until"):
+        patches.append((mod, "train_until", train_until))
+    for attr, steps_of, result in (
+            ("_nist_accuracy", lambda a: (a["steps"], "nist"),
+             lambda a: 0.0),
+            ("_bound_ratio", lambda a: (a["writes"] * a["tau_theta"],
+                                        "bound_ratio"), lambda a: 0.0),
+            ("_mgd_curve", lambda a: (a["iters"], "ideal" if a["tau"] == 1
+                                      else "fig4_tau100"), lambda a: 0.0),
+            ("train_backprop", lambda a: (a["num_steps"], "backprop"),
+             lambda a: types.SimpleNamespace(params=a["params"])),
+            ("_angles", lambda a: (a["seeds"] * a["iters"], "angle"),
+             lambda a: {t: 0.0 for t in mod.CHECKPOINTS})):
+        if hasattr(mod, attr):
+            patches.append((mod, attr, recorder(getattr(mod, attr),
+                                                steps_of, result)))
+    saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
+    try:
+        for m, attr, f in patches:
+            setattr(m, attr, f)
+        rows = mod.run(device="cpu")
+    finally:
+        for m, attr, f in saved:
+            setattr(m, attr, f)
+    return rows, runs
+
+
+def whole_budget_steps():
+    """Each twin's whole budget in steps of each rate kind, from a dry run
+    of its own ``run()``.  Where a committed baseline exists
+    (``hardware_plants``, ``fig8_noise``), each outcome row's runs (its
+    seeds' ``train_until`` calls, in call order) are the baseline's: a "k/N
+    solved" row's k runs at its median, a converged fraction's solved runs
+    at their first check (the chunk: the baseline keeps no steps), the rest
+    at the budget; elsewhere, and for a row the baseline lacks, a run that
+    can stop early counts its budget (``upper_bound``)."""
+    import importlib
+    out = {}
+    for name in FIG_TWINS:
+        rows, runs = dry_run(name)
+        n_seeds = importlib.import_module(
+            f"repro_torch.benchmarks.{name}").N_SEEDS
+        path = ROOT / "artifacts" / "bench" / f"{name}.json"
+        base = ({r["name"]: r for r in json.loads(path.read_text())["rows"]}
+                if path.exists() else None)
+        steps = [r["steps"] for r in runs]
+        upper = base is None and any(r["fn"] == "train_until" for r in runs)
+        if base is not None:
+            queue = [i for i, r in enumerate(runs) if r["fn"] == "train_until"]
+            for row in rows:
+                # the runs an outcome row reads: N of "k/N solved", N_SEEDS
+                # of a converged fraction
+                n = (int(row["detail"].split("/")[1].split()[0])
+                     if "solved" in row["detail"] else
+                     n_seeds if row["name"].endswith("_converged") else 0)
+                mine, queue = queue[:n], queue[n:]
+                b = base.get(row["name"])
+                upper |= bool(n) and b is None
+                if b is None or not n:
+                    continue
+                if "solved" in b["detail"]:
+                    k, at = int(b["detail"].split("/")[0]), b["value"]
+                else:
+                    k, at = round(b["value"] * n), None
+                for i in mine[:k]:
+                    steps[i] = at if at is not None else runs[i]["chunk"]
+            if queue:
+                raise RuntimeError(f"{name}: {len(queue)} runs matched no "
+                                   "outcome row of the dry run")
+        kinds = {}
+        for r, n in zip(runs, steps):
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + n
+        out[name] = dict(kinds, upper_bound=upper)
+    return out
+
+
+def whole_budget_seconds(steps, rates):
+    """Projected seconds of each twin's whole budget at ``rates`` (steps/s
+    by kind: the plant kinds', and those of 16b's calls in
+    FIG_RATE_CALLS)."""
+    return {bench: dict(seconds=sum(n / rates[k] for k, n in kinds.items()
+                                    if k != "upper_bound"),
+                        upper_bound=kinds["upper_bound"])
+            for bench, kinds in steps.items()}
+
+
+def paper_figures(torch, rt, kernels, card, dev):
+    """Phase 16: the paper's figure benches (``hardware_plants``,
+    ``fig4_equivalence`` … ``fig8_noise``) on the card, with the launch
+    counters zeroed before and read after.  16a: each of hardware_plants'
+    XOR plant kinds, the card's C̃ against the CPU's from the same state at
+    every step, the devices' draws bitwise, steps/s on both.  16b: cut
+    calls of the twins' own functions on the card and the CPU, printed
+    side by side (with a witness where they differ).  16c: the
+    ``*_projected_s`` rows equal the committed baseline's exactly.  Fatal:
+    a kernel launched, a C̃ gap, a draw or a projection that differs, a
+    twin that raises.  Returns the record."""
+    from repro_torch.benchmarks import hardware_plants as hp
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    plants = {kind: plant_kind_gate(torch, rt, hp, kind, dev)
+              for kind in PLANT_KINDS}
+    for kind, rec in plants.items():
+        print(json.dumps({"phase16_plant": kind, **rec}), flush=True)
+    draws = fig_draw_checks(torch, rt, hp, dev)
+    t_a = time.perf_counter()
+    calls = fig_twin_calls(torch, rt, dev)
+    t_b = time.perf_counter()
+    base = {r["name"]: r["value"] for r in json.loads(
+        (ROOT / "artifacts" / "bench" / "hardware_plants.json").read_text()
+        )["rows"]}
+    projections = {r["name"]: r["value"] for r in hp.projection_rows()}
+    for name, value in projections.items():
+        if value != base[name]:
+            fail(f"phase 16: {name} = {value!r}, the committed baseline "
+                 f"{base[name]!r}")
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        fail(f"phase 16: the figure benches launched kernels: {counts}")
+    rates = {k: v["card_steps_per_s"] for k, v in plants.items()}
+    cpu_rates = {k: v["cpu_steps_per_s"] for k, v in plants.items()}
+    for kind, call in FIG_RATE_CALLS.items():
+        rec = calls[call]
+        rates[kind] = rec["steps"] / rec["card_s"]
+        cpu_rates[kind] = rec["steps"] / rec["cpu_s"]
+    steps = whole_budget_steps()
+    out = dict(plants=plants, draws=draws, calls=calls,
+               projections=projections, launches=counts,
+               card_steps_per_s=rates, cpu_steps_per_s=cpu_rates,
+               whole_budget_steps=steps,
+               whole_budget_seconds_card=whole_budget_seconds(steps, rates),
+               whole_budget_seconds_cpu=whole_budget_seconds(steps,
+                                                              cpu_rates),
+               seconds={"16a": t_a - t0, "16b": t_b - t_a,
+                        "16c": time.perf_counter() - t_b}, card=card)
+    print(json.dumps({"phase16_rates": dict(card=rates, cpu=cpu_rates)}),
+          flush=True)
+    print(json.dumps({"phase16_whole_budget": dict(
+        steps=steps, card_s=out["whole_budget_seconds_card"],
+        cpu_s=out["whole_budget_seconds_cpu"])}), flush=True)
+    return out
+
+
 def kernel_device_us(profiles):
     """Device µs per launch of each kernel on the main path (profiler)."""
     found = {}
@@ -3777,9 +4294,17 @@ def main(argv=None) -> int:
         f"{k} {v['seconds']:.1f} s" for k, v in twins.items()), flush=True)
     done(15, t0)
 
+    # -- phase 16: the paper's figure benches -------------------------------
+    t0 = time.perf_counter()
+    figures = paper_figures(torch, rt, kernels, card, dev)
+    print("phase 16: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in figures["seconds"].items()), flush=True)
+    done(16, t0)
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
                    pp_mlp_counts, pp_lm_counts, serving_counts,
-                   family_counts, recurrent_counts, twin_counts):
+                   family_counts, recurrent_counts, twin_counts,
+                   figures["launches"]):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -3831,7 +4356,7 @@ def main(argv=None) -> int:
             imperfect_device=imperfect, resume=resume, paper_model=paper,
             paper_cnns=cnns, probe_parallel=pp, serving=serving,
             attention_families=families, recurrent_families=recurrent,
-            bench_twins=twins, phase_s=phase_s,
+            bench_twins=twins, paper_figures=figures, phase_s=phase_s,
             ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

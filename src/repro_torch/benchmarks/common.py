@@ -14,7 +14,7 @@ import json
 import os
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -107,24 +107,28 @@ def call_run(run: Callable, seed: int, smoke: bool, device):
 
 
 def bench_cli(bench: str, run: Callable, argv=None, *, doc: str,
-              smoke_help: str) -> int:
+              smoke_help: Optional[str] = None) -> int:
     """The twins' command line: ``[--out DIR] [--smoke] [--device cpu]
-    [--seed N]``.  Runs ``run`` through ``call_run``, prints the rows as
-    CSV and writes ``DIR/<bench>.json`` (``{"rows", "seconds", "seed"}``
-    as the reference's runner does, plus the device and card).  Gate it,
+    [--seed N]``, with no ``--smoke`` where ``smoke_help`` is None (the
+    twin has one budget).  Runs ``run`` through ``call_run``, prints the
+    rows as CSV and writes ``DIR/<bench>.json`` (``{"rows", "seconds",
+    "seed"}`` as the reference's runner does, plus the device and card).
+    Gate it,
     unedited, with ``python -m benchmarks.check_regression --fresh DIR
     --baseline artifacts/bench``."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--out", default="bench_torch",
                     help=f"directory for {bench}.json")
-    ap.add_argument("--smoke", action="store_true", help=smoke_help)
+    if smoke_help is not None:
+        ap.add_argument("--smoke", action="store_true", help=smoke_help)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    rows, seed, smoke = call_run(run, args.seed, args.smoke, args.device)
+    rows, seed, smoke = call_run(run, args.seed,
+                                 getattr(args, "smoke", False), args.device)
     seconds = time.perf_counter() - t0
     print("bench,name,value,detail")
     print_rows(rows)

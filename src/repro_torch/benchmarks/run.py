@@ -14,6 +14,10 @@ registered twins; an ``--only`` substring that matches none exits 2; a
 twin that raises makes the runner exit 1 after it has run the rest.
 Gate the directory, unedited, with ``python -m
 benchmarks.check_regression --fresh DIR --baseline artifacts/bench``.
+
+The twins are registered in the reference's order, all but
+``roofline_report``: it reads the artifacts of the reference's
+``launch.dryrun``, which the port does not have yet (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -29,8 +33,14 @@ from .common import call_run, print_rows, write_record
 
 BENCHES = [
     "scaling_laws",
+    "fig4_equivalence",
+    "fig5_angle",
+    "fig6_tau_theta",
+    "fig7_perturbations",
+    "fig8_noise",
     "table2_datasets",
     "table3_hardware",
+    "hardware_plants",
     "fused_probe",
     "farm_scaling",
     "drift_aging",

@@ -142,6 +142,34 @@ def test_conv2d_matches_reference(hw, c_in, c_out, stride, padding):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=FWD_ATOL)
 
 
+def test_conv2d_runs_cudnn_full_f32_and_deterministic(monkeypatch):
+    """Forward and both gradients of ``conv2d`` run with cuDNN's TF32 off
+    and its algorithms deterministic, and the caller's flags come back."""
+    import torch.nn.functional as F
+    cudnn = torch.backends.cudnn
+    seen = []
+
+    def record(f):
+        def call(*a, **kw):
+            seen.append((f.__name__, cudnn.allow_tf32, cudnn.deterministic))
+            return f(*a, **kw)
+        return call
+
+    monkeypatch.setattr(F, "conv2d", record(F.conv2d))
+    for name in ("conv2d_input", "conv2d_weight"):
+        monkeypatch.setattr(torch.nn.grad, name,
+                            record(getattr(torch.nn.grad, name)))
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    monkeypatch.setattr(cudnn, "deterministic", False)
+    w = torch.ones(3, 3, 2, 4, requires_grad=True)
+    x = torch.ones(1, 5, 5, 2, requires_grad=True)
+    tlayers.conv2d({"w": w, "b": torch.zeros(4)}, x).sum().backward()
+    assert sorted(seen) == [("conv2d", False, True),
+                            ("conv2d_input", False, True),
+                            ("conv2d_weight", False, True)]
+    assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+
+
 @pytest.mark.parametrize("hw", [(8, 8), (7, 7), (5, 9)])
 def test_maxpool2_matches_reference(hw):
     x = np.random.default_rng(1).standard_normal((2, *hw, 3)).astype(

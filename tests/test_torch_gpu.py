@@ -1150,3 +1150,131 @@ def test_fused_probe_mlp_rows_launch_the_kernels(cuda_device, mode):
     assert fus["steps_per_s"] > 0 and mat["steps_per_s"] > 0
     assert (fus["c_tilde"][:8] - mat["c_tilde"][:8]).abs().max().item() \
         <= 1e-5
+
+
+# -- the paper's figure benches (hardware_plants, fig4-fig8) ------------------
+
+FIG_PLANT_KINDS = ["ideal", "sigma_c_1e-3", "sigma_theta_0.1",
+                   "sigma_a_0.15", "dac8", "dac8_tauw4", "adc8_round",
+                   "adc8_stoch"]
+
+
+def _to(tree, dev):
+    from repro_torch.core.utils import tree_map
+    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", FIG_PLANT_KINDS)
+def test_fig_plant_kind_card_matches_cpu_from_same_state(cuda_device, kind):
+    """50 steps of the hardware_plants XOR row's driver on the card, each
+    repeated on the CPU from the card's params, state and batch: C̃ within
+    1e-5 at every step and the updated params within 100 × that step's C̃
+    gap + 1e-6, bitwise on a DAC (chip_smoke.py's phase-16 gates), no
+    kernel launched (the unfused driver)."""
+    import repro_torch as rt
+    from repro_torch.benchmarks import hardware_plants as hp
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.data import tasks
+    from repro_torch.data.pipeline import dataset_sampler
+
+    cpu = torch.device("cpu")
+    drvs = []
+    for dev in (cuda_device, cpu):
+        plant, mode = hp.xor_plant(kind, 0, dev)
+        drvs.append(rt.driver("discrete", rt.DriverConfig(
+            dtheta=1e-2, eta=1.0, mode=mode), None, plant=plant, device=dev))
+    drv, ref = drvs
+    x, y = tasks.xor_dataset(device=cuda_device)
+    sample = dataset_sampler(x, y, 1)
+    p = rt.mlp_init(0, (2, 2, 1), device=cuda_device)
+    s = drv.init(p)
+    kernels.reset_launch_counts()
+    on_grid = getattr(plant, "bits", None) is not None
+    for _ in range(50):
+        b = sample(s.step)
+        p_ref, _, a_ref = ref.step(_to(p, cpu), _to(s, cpu), _to(b, cpu))
+        p, s, aux = drv.step(p, s, b)
+        ct = abs(aux["c_tilde"].item() - a_ref["c_tilde"].item())
+        assert ct <= 1e-5
+        gap = max((a.cpu() - r).abs().max().item()
+                  for a, r in zip(tree_leaves(p), tree_leaves(p_ref)))
+        assert gap <= (0.0 if on_grid else 100 * ct + 1e-6), (gap, ct)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.gpu
+def test_hardware_plants_cut_calls_card_matches_cpu(cuda_device):
+    """The hardware_plants twin's NIST7x7 device path (the full §3.5
+    device, 60 steps) and its bound ratio (τ_w = 4, τ_θ = 8, 5 writes) on
+    the card and the CPU: accuracies within two of the 512 eval samples,
+    bound ratios within 1e-3 relative; the projections equal the
+    committed baseline's exactly."""
+    import json
+    import pathlib
+
+    from repro_torch.benchmarks import hardware_plants as hp
+
+    got = []
+    for dev in (cuda_device, torch.device("cpu")):
+        plant, defects = hp._nist_plant(hp.NIST_DEVICES[1][1], {}, 0, dev)
+        got.append((hp._nist_accuracy(plant, defects, 0, steps=60, chunk=60,
+                                      device=dev),
+                    hp._bound_ratio(4.0, 8, 0, writes=5, device=dev)))
+    (acc, ratio), (acc_cpu, ratio_cpu) = got
+    assert abs(acc - acc_cpu) <= 2 / 512
+    assert abs(ratio - ratio_cpu) <= 1e-3 * abs(ratio_cpu)
+    base = json.loads((pathlib.Path(__file__).resolve().parent.parent /
+                       "artifacts" / "bench" / "hardware_plants.json"
+                       ).read_text())["rows"]
+    base = {r["name"]: r["value"] for r in base}
+    for r in hp.projection_rows():
+        assert r["value"] == base[r["name"]]
+
+
+@pytest.mark.gpu
+def test_fig4_fig5_cut_calls_card_matches_cpu(cuda_device):
+    """fig4's τ = 100 curve (200 iterations) and fig5's parity-2 angle at
+    step 100 on the card and the CPU: final costs within 1e-5, angles
+    within 1e-4 rad."""
+    from repro_torch.benchmarks import fig4_equivalence as f4
+    from repro_torch.benchmarks import fig5_angle as f5
+    from repro_torch.data import tasks
+
+    (cost, angles), (cost_cpu, angles_cpu) = [
+        (f4._mgd_curve(100, 0, iters=200, chunk=100, device=dev),
+         f5._angles((2, 2, 1), dict(zip("xy", tasks.parity_dataset(
+             2, device=dev))), seeds=1, iters=100, device=dev))
+        for dev in (cuda_device, torch.device("cpu"))]
+    assert abs(cost - cost_cpu) <= 1e-5
+    assert list(angles) == [100]
+    assert abs(angles[100] - angles_cpu[100]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fig6_fig7_fig8_cut_calls_card_equal_cpu(cuda_device):
+    """fig6's batch-4 path, fig7's Walsh code at τ_x = 250 and fig8's σ_C
+    device through ``time_to_solve_xor`` (300 steps in chunks of 150) on
+    the card and the CPU: the same outcome; no kernel launched."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import fig7_perturbations as f7
+    from repro_torch.core import MGDConfig
+    from repro_torch.hardware import noisy_mlp_plant
+
+    def calls(dev):
+        return [
+            common.time_to_solve_xor(
+                MGDConfig(dtheta=1e-2, eta=0.5, tau_theta=16, tau_x=4), 0,
+                max_steps=300, chunk=150, device=dev),
+            common.time_to_solve_xor(f7.config("walsh"), 0, max_steps=300,
+                                     chunk=150, device=dev),
+            common.time_to_solve_xor(
+                MGDConfig(dtheta=1e-2, eta=1.0), 0, max_steps=300, chunk=150,
+                plant=noisy_mlp_plant((2, 2, 1), sigma_c=1e-3, dtheta=1e-2,
+                                      device_seed=0, device=dev),
+                device=dev)]
+
+    kernels.reset_launch_counts()
+    assert calls(cuda_device) == calls(torch.device("cpu"))
+    assert set(kernels.launch_counts().values()) == {0}
