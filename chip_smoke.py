@@ -263,6 +263,28 @@ Phases, each fatal on failure (nothing is caught):
    counts, or the reference's budgets as an upper bound) and projected
    seconds at those rates.
 
+17. Distribution on ``torch.distributed``, in two processes of this
+   script (``--phase17 a|b``; a fake world and a real one cannot share
+   one default process group), each of which must exit 0.  17a, needing
+   no card: the dry run of Qwen3-14B
+   train_4k on a fake (16, 16) world of 256 ranks at full depth, fake
+   CUDA tensors, nothing allocated, started beside phase 13 (``launch.dryrun.run_cell``): its
+   params equal ``specs.abstract_params``' count, its counted flops lie
+   within DRY_RATIO of ``model_flops`` and its collective bytes are > 0;
+   it prints collective MiB by type, args and temp GiB per rank and the
+   H100 roofline terms.  17b: a one-rank NCCL world on the card and a
+   (1, 1) ("data", "model") mesh: Qwen3-14B at 4 layers, bf16, placed by
+   ``param_shardings`` and ``shard_batch``, 3 unfused central and 3
+   forward steps with C̃ and params bitwise the unsharded step's from
+   the same state; probe pods as ranks (pod = 1), fused, on that model
+   and on the NIST7x7 MLP, bitwise ``LocalMesh(pod=1)``, their B2 and B3
+   (J = 1) launches counted into the kernels line; the stacked
+   attention weights saved from the mesh and restored with no mesh,
+   bitwise; and
+   ``quantize_int8`` on a [5120, 17408] f32 tensor, card against CPU,
+   bitwise.  Phase 16's cut calls run 100 XOR steps (16b) and 50 timed
+   steps a kind (16a) to make room for it.
+
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
 eager torch ops.  Every phase prints its seconds.
@@ -278,6 +300,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -1863,9 +1886,9 @@ class WindowRecorder:
         self.ops.mgd_update_window_group = self.orig
 
 
-def pp_expected(steps, per_pod_pairs, windows=1):
+def pp_expected(steps, per_pod_pairs, windows=1, pods=PODS):
     return dict(perturbed_matmul=0,
-                perturbed_matmul_pair=PODS * per_pod_pairs * steps,
+                perturbed_matmul_pair=pods * per_pod_pairs * steps,
                 mgd_update_window=windows * steps, mgd_update=0)
 
 
@@ -3558,9 +3581,17 @@ def fused_probe_ct(torch, rt, fp, model, mode, rec, dev, name):
                 trajectory_limit=limit)
 
 
+TWIN_ROUNDS = 8             # phase 15's cut calls: variance rounds
+TWIN_STEPS = 100            # convergence / accuracy steps
+TWIN_THROUGHPUT_KS = (1, 4)  # the farm's throughput sweep
+
+
 def bench_twins(torch, rt, kernels, card, dev, out_dir):
-    """Phase 15: the four bench twins on the card at their smoke budgets
-    (``fused_probe`` has none and runs whole), each driven with the launch
+    """Phase 15: the four bench twins on the card: ``fused_probe`` whole,
+    ``table3_hardware``, and cut calls of ``farm_scaling``'s and
+    ``scaling_laws``' own row functions (TWIN_ROUNDS rounds, TWIN_STEPS
+    steps, the throughput sweep at TWIN_THROUGHPUT_KS; their smoke
+    budgets are 24-30 rounds and 300 steps), each driven with the launch
     counters zeroed before it and read after.  Fatal: a twin raises; the
     bitmatch row is not 1.0; an arithmetic row leaves its band around the
     committed baseline; a fused_probe launch count, C̃ or B3 gate misses.
@@ -3575,9 +3606,11 @@ def bench_twins(torch, rt, kernels, card, dev, out_dir):
 
     out, totals = {}, dict.fromkeys(SOURCES, 0)
 
-    def drive(bench, fn, checks=None, seed=None, smoke=False):
+    def drive(bench, fn, checks=None, seed=None, smoke=False, record=True):
         """Times ``fn() -> rows`` alone (its seconds are the twin's), then
-        runs ``checks(rows, launch counts) -> extra record``."""
+        runs ``checks(rows, launch counts) -> extra record``; writes the
+        rows as a bench record where ``record`` (a twin run at a budget
+        of its own)."""
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         rows = fn()
@@ -3591,7 +3624,7 @@ def bench_twins(torch, rt, kernels, card, dev, out_dir):
         for r in rows:
             print(json.dumps({"bench_row": bench, "name": r["name"],
                               "value": r["value"]}), flush=True)
-        if out_dir is not None:
+        if out_dir is not None and record:
             common.write_record(str(out_dir), bench, rows, seconds, seed,
                                 "cuda", smoke)
         out[bench] = dict(seconds=seconds, launches=counts,
@@ -3625,10 +3658,21 @@ def bench_twins(torch, rt, kernels, card, dev, out_dir):
 
     drive("fused_probe", fused_probe, fused_probe_checks)
     drive("table3_hardware", lambda: t3.run(device=dev))
-    drive("farm_scaling", lambda: fs.run(seed=0, smoke=True, device=dev),
-          seed=0, smoke=True)
-    drive("scaling_laws", lambda: sl.run(seed=0, smoke=True, device=dev),
-          bitmatch, seed=0, smoke=True)
+    def farm_cut():
+        ks = fs.SMOKE_KS
+        return (fs._variance_rows(ks, TWIN_ROUNDS, 0, dev)
+                + fs._convergence_rows(ks, TWIN_STEPS, 0, 1, dev)
+                + fs._latency_rows(ks)
+                + fs._throughput_rows(TWIN_THROUGHPUT_KS, True, dev))
+
+    def scaling_cut():
+        rows = sl._variance_rows(TWIN_ROUNDS, 0, dev)
+        n_rows, var_by_n = sl._variance_vs_n_rows(TWIN_ROUNDS, 0, dev)
+        return (rows + n_rows + sl._accuracy_rows(TWIN_STEPS, 0, dev)
+                + sl._bitmatch_rows(dev) + sl._projection_rows(var_by_n))
+
+    drive("farm_scaling", farm_cut, seed=0, record=False)
+    drive("scaling_laws", scaling_cut, bitmatch, seed=0, record=False)
     return out, totals
 
 
@@ -3638,10 +3682,10 @@ def bench_twins(torch, rt, kernels, card, dev, out_dir):
 PLANT_KINDS = ("ideal", "sigma_c_1e-3", "sigma_theta_0.1", "sigma_a_0.15",
                "dac8", "dac8_tauw4", "adc8_round", "adc8_stoch")
 FIG_GATE_STEPS = 200        # card steps, each repeated on the CPU
-FIG_RATE_STEPS = 200        # steps timed a kind and device
-FIG_STEPS = 600             # 16b's XOR budgets: max_steps, iters
-FIG_CHUNK = 300
-FIG_NIST_STEPS = 200        # _nist_accuracy's steps and chunk
+FIG_RATE_STEPS = 50         # steps timed a kind and device
+FIG_STEPS = 100             # 16b's XOR budgets: max_steps, iters
+FIG_CHUNK = 50
+FIG_NIST_STEPS = 100        # _nist_accuracy's steps and chunk
 FIG_WRITES = 25             # _bound_ratio's writes (τ_θ = 8: 200 steps)
 FIG_ANGLE_ITERS = 1000      # fig5's checkpoints 100 and 1000
 # 16a's update gate, card vs CPU from the same state: a C̃ gap moves each
@@ -4134,13 +4178,352 @@ def kernel_device_us(profiles):
     return found
 
 
+# -- phase 17: distribution ----------------------------------------------------
+
+DRY_ARCH, DRY_SHAPE = "qwen3-14b", "train_4k"
+DRY_DEVICE = "cuda"         # the fake tensors' device
+# 17a's flops gate: the counted flops are model_flops' matmul terms
+# exactly (every weight's 2·M·N·K, the head included, the embedding a
+# gather) plus the causal attention, which the port's masked attention
+# computes at 36 of 64 (q, kv) block pairs at S = 4096 where the formula
+# takes S²/2: +12.5 % of the attention term, ~0.7 % of the step.  The CPU
+# run of the same cell (full depth) gave a ratio of 1.00704.
+DRY_RATIO = (1.0, 1.02)
+DIST_LAYERS = LM_LAYERS     # 17b's model: phase 5's 4 layers
+DIST_STEPS = 3              # unfused central and forward, each
+DIST_PP_MLP_STEPS = 8
+DIST_PP_LM_STEPS = 3
+QUANT_SHAPE = (5120, 17408)
+PHASE17_TIMEOUT_S = 600
+
+
+def dryrun_cell(torch):
+    """Phase 17a (its own process): Qwen3-14B train_4k on the (16, 16)
+    fake mesh, fake CUDA tensors, nothing allocated."""
+    from repro_torch.distributed.world import close_world, fake_world
+    from repro_torch.launch import dryrun, roofline, specs
+    from repro_torch.configs import get_config
+    fake_world(256)
+    t0 = time.perf_counter()
+    try:
+        rec = dryrun.run_cell(DRY_ARCH, DRY_SHAPE, multi_pod=False,
+                              out_dir=None, device_type=DRY_DEVICE,
+                              verbose=False)
+    finally:
+        close_world()
+    cfg = get_config(DRY_ARCH)
+    n_params = dryrun.count_params(specs.abstract_params(cfg))
+    if rec["params"] != n_params:
+        fail(f"phase 17a: params {rec['params']} != abstract_params' "
+             f"{n_params}")
+    ratio = rec["counted_flops"] / rec["model_flops"]
+    if not DRY_RATIO[0] <= ratio <= DRY_RATIO[1]:
+        fail(f"phase 17a: counted/model flops {ratio} outside {DRY_RATIO}")
+    if not rec["collective_bytes_per_device"] > 0:
+        fail("phase 17a: no collective bytes")
+    m = rec["memory"]
+    terms = roofline.roofline_terms(rec)
+    return dict(
+        arch=DRY_ARCH, shape=DRY_SHAPE, mesh=rec["mesh"],
+        layers=cfg.n_layers,
+        params=rec["params"], counted_flops=rec["counted_flops"],
+        model_flops=rec["model_flops"], counted_over_model=ratio,
+        collective_mib_per_device={k: v / 2**20 for k, v in
+                                   rec["collective_by_type"].items()},
+        collective_mib_total=rec["collective_bytes_per_device"] / 2**20,
+        n_collectives=rec["n_collectives"],
+        args_gib=m["argument_bytes"] / 2**30,
+        temp_gib=m["temp_bytes"] / 2**30,
+        roofline={k: terms[k] for k in ("compute", "memory", "collective",
+                                        "dominant", "step_time_bound")},
+        run_s=rec["seconds"]["run"], seconds=time.perf_counter() - t0)
+
+
+def _same_tree(torch, a, b):
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.distributed.sharding import full
+    return all(torch.equal(full(x), y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def one_rank_mesh(torch, rt, kernels, card, dev, backend="nccl",
+                  ready=None):
+    """Phase 17b (its own process): a one-rank world on ``dev``, a (1, 1)
+    ("data", "model") DeviceMesh and a (1,) ("pod",) one.  ``ready()``,
+    called once the world and the meshes stand, returns when the phase
+    may start."""
+    import tempfile
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.world import close_world, init_world
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.training import checkpoint as ckpt
+    import concurrent.futures
+    from repro_torch.core import rng
+    out, totals = {}, dict.fromkeys(SOURCES, 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p17_")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        init_world(backend, 0, 1, os.path.join(tmp, "store"))
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        pmesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+        if ready is not None:
+            ready()
+        # 17b.4's CPU half (~20 s of threefry on the host) runs in a
+        # thread beside 17b.1-3: its tensor ops release the GIL
+        gen = torch.Generator().manual_seed(5)
+        g = torch.randn(QUANT_SHAPE, generator=gen)
+        r = torch.randn(QUANT_SHAPE, generator=gen) * 1e-3
+        key = rng.fold_in(rng.prng_key(17), 3)
+        t_quant = time.perf_counter()
+        cpu_quant = pool.submit(comp.quantize_int8, g, r, key)
+        # 17b.1: the unfused step on DTensor params, bitwise
+        t0 = time.perf_counter()
+        cfg = rt.get_config("qwen3-14b").replace(n_layers=DIST_LAYERS)
+        p0 = rt.model_init(cfg, 0, device=dev)
+        batch = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)(0)
+        runs, sharded_final = {}, None
+        kernels.reset_launch_counts()
+        for mode in ("central", "forward"):
+            mcfg = rt.MGDConfig(dtheta=1e-2, eta=1e-2, mode=mode)
+            step = rt.build_mgd_step(lambda p, b: rt.model_loss(p, cfg, b),
+                                     mcfg)
+            p, s = p0, rt.mgd_init(p0, mcfg)
+            cts = []
+            for _ in range(DIST_STEPS):
+                p, s, m = step(p, s, batch)
+                cts.append(m["c_tilde"])
+            with shd.use_mesh(mesh):
+                q = shd.device_put(p0, specs.param_shardings(cfg, mesh))
+                sb = shard_batch(batch, mesh)
+                qs = rt.mgd_init(q, mcfg)
+                torch.cuda.synchronize() if dev.type == "cuda" else None
+                t1 = time.perf_counter()
+                gct = []
+                for _ in range(DIST_STEPS):
+                    q, qs, m = step(q, qs, sb)
+                    gct.append(m["c_tilde"])
+                torch.cuda.synchronize() if dev.type == "cuda" else None
+                dt = time.perf_counter() - t1
+            same_ct = all(torch.equal(shd.full(a), b)
+                          for a, b in zip(gct, cts))
+            same_p = _same_tree(torch, q, p)
+            if not (same_ct and same_p):
+                fail(f"phase 17b {mode}: the one-rank mesh's step is not "
+                     f"bitwise the unsharded step (C̃ {same_ct}, params "
+                     f"{same_p})")
+            runs[mode] = dict(steps=DIST_STEPS, bitwise=True,
+                              s_per_step_mesh=dt / DIST_STEPS,
+                              c_tilde=[float(c) for c in cts],
+                              dtensor_leaves=sum(
+                                  shd.is_dtensor(x) for x in
+                                  rt.core.utils.tree_leaves(q)))
+            sharded_final, plain_final = q, p
+            del p, s, q, qs
+        if any(kernels.launch_counts().values()):
+            fail(f"phase 17b.1: the unfused step launched "
+                 f"{kernels.launch_counts()}")
+        out["17b1"] = dict(runs=runs, layers=DIST_LAYERS,
+                           seconds=time.perf_counter() - t0)
+        print(json.dumps({"phase17b1": out["17b1"]}), flush=True)
+        # 17b.3: a checkpoint saved from the mesh, restored with no mesh
+        # (the stacked attention: 1.1 GB of the 5.7)
+        t0 = time.perf_counter()
+        saved = sharded_final["layers"]["attn"]
+        ckpt.save(os.path.join(tmp, "ckpt"), 7, saved)
+        back, _, step_no = ckpt.restore(os.path.join(tmp, "ckpt"),
+                                        p0["layers"]["attn"])
+        if step_no != 7 or not _same_tree(torch, saved, back) \
+                or not _same_tree(torch, back,
+                                  plain_final["layers"]["attn"]):
+            fail("phase 17b.3: the checkpoint restored with no mesh is not "
+                 "bitwise the mesh's params")
+        out["17b3"] = dict(bitwise=True, seconds=time.perf_counter() - t0)
+        del sharded_final, plain_final, back
+        # 17b.2: probe pods as ranks, fused, against LocalMesh(pod=1)
+        t0 = time.perf_counter()
+        mlp_loss = (lambda p, b: rt.mse(rt.mlp_apply(p, b["x"]), b["y"]))
+        from repro_torch.data import pipeline, tasks
+        mlp = dict(
+            loss=mlp_loss, probe=rt.make_mlp_probe_fn(),
+            cfg=rt.DriverConfig(dtheta=1e-2, eta=0.1, seed=1, fused=True,
+                                mode="central"),
+            p0=rt.mlp_init(2, MLP_SIZES, device=dev),
+            sample=pipeline.generator_sampler(tasks.nist7x7_batch, 4,
+                                              seed=7, device=dev),
+            steps=DIST_PP_MLP_STEPS, pairs=2)
+        lm = dict(
+            loss=lambda p, b: rt.model_loss(p, cfg, b),
+            probe=rt.make_transformer_probe_fn(cfg),
+            cfg=rt.DriverConfig(dtheta=1e-2, eta=1e-2, seed=0, fused=True,
+                                mode="central"),
+            p0=p0, sample=rt.lm_sampler(8, 64, cfg.vocab, seed=0,
+                                        device=dev),
+            steps=DIST_PP_LM_STEPS, pairs=LM_PER_LAYER * DIST_LAYERS + 1)
+        pods = {}
+        for name, case in (("mlp", mlp), ("lm", lm)):
+            def run(m):
+                drv = rt.driver("probe_parallel", case["cfg"], case["loss"],
+                                probe_fn=case["probe"], mesh=m, device=dev)
+                p, s = case["p0"], drv.init(case["p0"])
+                cts, ps = [], []
+                for i in range(case["steps"]):
+                    p, s, aux = drv.step(p, s, case["sample"](i))
+                    cts.append(aux["c_tilde"])
+                    ps.append(p)
+                return cts, ps
+            kernels.reset_launch_counts()
+            with WindowRecorder(ops) as rec:
+                got = run(pmesh)
+                torch.cuda.synchronize() if dev.type == "cuda" else None
+            counts = kernels.launch_counts()   # the ranks' run alone
+            want = local = None
+            want = pp_expected(case["steps"], case["pairs"], pods=1)
+            local = run(rt.LocalMesh(pod=1))
+            same = all(torch.equal(a, b) for a, b in zip(got[0], local[0])) \
+                and all(_same_tree(torch, a, b)
+                        for a, b in zip(got[1], local[1]))
+            if not same:
+                fail(f"phase 17b.2 {name}: pods as ranks are not bitwise "
+                     f"LocalMesh(pod=1)")
+            if dev.type == "cuda" and counts != want:
+                fail(f"phase 17b.2 {name}: launches {counts} != {want}")
+            if rec.calls and any(c[1] != 1 for c in rec.calls):
+                fail(f"phase 17b.2 {name}: window updates {rec.calls}, "
+                     f"expected J = 1")
+            for k, v in counts.items():
+                totals[k] += v
+            pods[name] = dict(steps=case["steps"], bitwise=True,
+                              launches=counts, window_calls=rec.calls[:1])
+            del got, local
+        out["17b2"] = dict(pods, seconds=time.perf_counter() - t0)
+        print(json.dumps({"phase17b2": out["17b2"]}), flush=True)
+        del p0, lm, mlp
+        # 17b.4: int8 compression, card against CPU
+        t0 = time.perf_counter()
+        on_card = comp.quantize_int8(g.to(dev), r.to(dev), key)
+        on_cpu = cpu_quant.result()
+        t_cpu = time.perf_counter() - t_quant
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+            fail("phase 17b.4: quantize_int8 on the card differs from the "
+                 "CPU")
+        out["17b4"] = dict(shape=list(QUANT_SHAPE), bitwise=True,
+                           scale=float(on_cpu[1]),
+                           seconds=time.perf_counter() - t0,
+                           cpu_thread_s=t_cpu)
+    finally:
+        pool.shutdown(wait=True)
+        close_world()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["card"] = card
+    return out, totals
+
+
+_CHILDREN = []
+
+
+def _stop_children():
+    """Kills the phase-17 processes still running when this one exits
+    (a failed phase must not leave them on the card)."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_phase17(which):
+    """A phase-17 subprocess (this script with ``--phase17 a|b``), its
+    output and errors into temp files."""
+    import tempfile
+    log, err = tempfile.TemporaryFile(mode="w+"), \
+        tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--phase17", which], stdin=subprocess.PIPE, stdout=log,
+        stderr=err, text=True)
+    if not _CHILDREN:
+        import atexit
+        atexit.register(_stop_children)
+    _CHILDREN.append(proc)
+    return proc, (log, err), time.perf_counter()
+
+
+def go_phase17(started):
+    """Lets a started 17b begin (it waits on a line of its input); the
+    phase's seconds count from here."""
+    proc, files, _ = started
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+    return proc, files, time.perf_counter()
+
+
+def finish_phase17(which, proc, files, t_start):
+    """Waits for a phase-17 subprocess; fails unless it exited 0.  Returns
+    its record (its last output line) and its seconds."""
+    try:
+        proc.wait(timeout=PHASE17_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"phase 17{which}: no exit within {PHASE17_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t_start
+    log, err = files
+    log.seek(0)
+    err.seek(0)
+    lines, errors = log.read().splitlines(), err.read()
+    log.close()
+    err.close()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        print(errors[-4000:], file=sys.stderr, flush=True)
+        fail(f"phase 17{which}: its process exited {proc.returncode}")
+    return json.loads(lines[-1]), seconds
+
+
+def phase17_main(which):
+    """The body of ``--phase17 a|b``: prints the record as its last line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if which == "a":
+        print(json.dumps(dryrun_cell(torch)), flush=True)
+        return 0
+    import repro_torch as rt
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    _build.build_all()          # the parent's build: loads, no nvcc run
+    # started before phase 16, it sets up and waits for the parent's "go"
+    def ready():
+        if sys.stdin.readline() != "go\n":     # the parent is gone
+            fail("phase 17b: no go from phase 17")
+
+    out, totals = one_rank_mesh(torch, rt, kernels, card_line(),
+                                torch.device("cuda"), ready=ready)
+    print(json.dumps(dict(out, launches=totals)), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=TRAIN_STEPS,
                     help="MLP training steps per run (multiple of 4, >= 32)")
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every record to this JSON file")
+    ap.add_argument("--phase17", choices=("a", "b"), default=None,
+                    help=argparse.SUPPRESS)   # phase 17's subprocesses
     args = ap.parse_args(argv)
+    if args.phase17:
+        return phase17_main(args.phase17)
     if args.steps < CT_CHECK_STEPS or args.steps % 4:
         fail("--steps must be a multiple of 4 and at least 32")
 
@@ -4264,6 +4647,9 @@ def main(argv=None) -> int:
     done(12, t0)
 
     # -- phase 13: the attention families at full width -------------------
+    # 17a (the dry run: fake tensors, no card) runs beside phases 13-14,
+    # one process on the host's CPU while they keep the card busy
+    p17a = start_phase17("a")
     t0 = time.perf_counter()
     families, family_counts = attention_families(torch, rt, kernels, card,
                                                  dev)
@@ -4295,16 +4681,35 @@ def main(argv=None) -> int:
     done(15, t0)
 
     # -- phase 16: the paper's figure benches -------------------------------
+    # 17b's process starts here and sets up (imports, the kernels' load,
+    # its world) while phase 16 runs; it waits for the "go" of phase 17
+    p17b = start_phase17("b")
     t0 = time.perf_counter()
     figures = paper_figures(torch, rt, kernels, card, dev)
     print("phase 16: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in figures["seconds"].items()), flush=True)
     done(16, t0)
 
+    # -- phase 17: distribution on torch.distributed -----------------------
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    p17b = go_phase17(p17b)
+    dist = {}
+    dist["17b"], dist["17b_seconds"] = finish_phase17("b", *p17b)
+    dist["17a"], dist["17a_seconds"] = finish_phase17("a", *p17a)
+    dist_counts = dist["17b"].pop("launches")
+    dist["17a"]["card"] = card
+    print(json.dumps({"phase17a": dist["17a"]}), flush=True)
+    print(json.dumps({"phase17b": dist["17b"]}), flush=True)
+    print(f"phase 17: 17a {dist['17a_seconds']:.1f} s (from phase 13's "
+          f"start), 17b {dist['17b_seconds']:.1f} s", flush=True)
+    done(17, t0)
+    dist["seconds"] = phase_s[17]
+
     for counts in (lm_totals, deep_counts, imperfect_counts, paper_counts,
                    pp_mlp_counts, pp_lm_counts, serving_counts,
                    family_counts, recurrent_counts, twin_counts,
-                   figures["launches"]):
+                   figures["launches"], dist_counts):
         for k, v in counts.items():
             totals[k] += v
     main_shape = {"perturbed_matmul": (list(LM_MAIN), "bfloat16", None),
@@ -4356,7 +4761,8 @@ def main(argv=None) -> int:
             imperfect_device=imperfect, resume=resume, paper_model=paper,
             paper_cnns=cnns, probe_parallel=pp, serving=serving,
             attention_families=families, recurrent_families=recurrent,
-            bench_twins=twins, paper_figures=figures, phase_s=phase_s,
+            bench_twins=twins, paper_figures=figures, distribution=dist,
+            phase_s=phase_s,
             ptxas=ptxas_summary(reports)), indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

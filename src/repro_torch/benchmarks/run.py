@@ -15,9 +15,7 @@ twin that raises makes the runner exit 1 after it has run the rest.
 Gate the directory, unedited, with ``python -m
 benchmarks.check_regression --fresh DIR --baseline artifacts/bench``.
 
-The twins are registered in the reference's order, all but
-``roofline_report``: it reads the artifacts of the reference's
-``launch.dryrun``, which the port does not have yet (ROADMAP A15).
+The twins are registered in the reference's order.
 """
 from __future__ import annotations
 
@@ -46,6 +44,7 @@ BENCHES = [
     "drift_aging",
     "fault_tolerance",
     "online_serving",
+    "roofline_report",
 ]
 
 

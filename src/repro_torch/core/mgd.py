@@ -37,7 +37,8 @@ import torch
 from repro_torch.kernels import ops as kops
 from . import perturbations as pert
 from .probe_parallel import pod_seed
-from .utils import (epoch_loop, f32, leaf_meta, tree_add, tree_axpy,
+from .utils import (epoch_loop, f32, is_dtensor, leaf_meta, tree_add,
+                    tree_axpy,
                     tree_flatten, tree_leaves, tree_map, tree_scale,
                     tree_unflatten, tree_zeros_like)
 
@@ -381,6 +382,11 @@ def build_mgd_step(
         return replay_c
 
     def step_fn_fused(params, state: MGDState, batch):
+        if any(is_dtensor(leaf) for leaf in tree_leaves(params)):
+            raise NotImplementedError(
+                "the fused step on a parameter-sharded mesh is ROADMAP "
+                "A15b (its kernels read whole leaves); run the unfused "
+                "step (fused=False) on DTensor params")
         n = state.step
         c_tilde, c0, cost_metric = probe_once_fused(params, state, batch)
         do_update = (n + 1) % cfg.tau_theta == 0

@@ -18,6 +18,13 @@ The murmur3 counter hash has two forms that agree bit for bit:
 Negative steps (the replay window can reach before step 0 under
 staleness) wrap as uint32, and ``step // tau_p`` is floor division, both
 as in the reference.
+
+Signs on a shard.  A leaf may be a DTensor placed on a device mesh
+(``distributed.sharding``).  Its θ̃ is then formed on the local shard
+alone, each local element hashed at its *global* row-major index
+(``shard_index``, from the shard's offset): θ̃ of a sharded leaf is the
+unsharded θ̃ restricted to the shard, bit for bit, and its
+``full_tensor()`` the unsharded θ̃.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .utils import f32, leaf_meta, tree_flatten, tree_unflatten
+from .utils import f32, is_dtensor, leaf_meta, tree_flatten, tree_unflatten
 
 PERTURBATION_TYPES = ("rademacher", "walsh", "sequential", "sinusoidal")
 
@@ -95,6 +102,102 @@ def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
+def shard_layout(leaf):
+    """(local shape, global offset of the local block) of a DTensor
+    leaf."""
+    return local_layout(tuple(leaf.shape), leaf.device_mesh,
+                        tuple(leaf.placements))
+
+
+def local_layout(shape, mesh, placements):
+    """(local shape, global offset) of this rank's block of a tensor of
+    ``shape`` under ``placements``.  It reads the rank's mesh coordinate,
+    so under ``FakeTensorMode`` (the dry run) it steps out of it."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    with unset_fake_temporarily():
+        local, offset = compute_local_shape_and_global_offset(
+            shape, mesh, placements)
+    return tuple(local), tuple(offset)
+
+
+def shard_index(shape, local_shape, offset, rows=None, device=None):
+    """Global row-major flat indices (int64, flattened) of a local block
+    of ``local_shape`` at ``offset`` in a tensor of ``shape``, or of its
+    leading-dim rows ``rows = (start, stop)``.  A column shard's indices
+    are strided, not one range, so they are built dim by dim."""
+    if not shape:
+        return torch.zeros((1,), dtype=torch.int64, device=device)
+    lo, hi = rows if rows is not None else (0, local_shape[0])
+    dims = (hi - lo,) + tuple(local_shape[1:])
+    stride = 1
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    for d in range(len(shape) - 1, -1, -1):
+        start = offset[d] + (lo if d == 0 else 0)
+        ar = torch.arange(start, start + dims[d], dtype=torch.int64,
+                          device=device) * stride
+        idx = idx + ar.reshape((dims[d],) + (1,) * (len(shape) - 1 - d))
+        stride *= shape[d]
+    return idx.reshape(-1)
+
+
+def _leaf_index(leaf, n: int):
+    """Hash indices of every element ``generate`` forms for ``leaf``: the
+    iota of a whole leaf, or a shard's global indices."""
+    if not is_dtensor(leaf):
+        return _iota(n, leaf.device)
+    local_shape, offset = shard_layout(leaf)
+    return shard_index(tuple(leaf.shape), local_shape, offset,
+                       device=leaf.to_local().device)
+
+
+def _rademacher_values(leaf, lseed, dtheta, dtype, chunk=None):
+    """``(signs · f32(Δθ)).to(dtype)`` for every element of ``leaf`` (its
+    local shard if a DTensor), formed in passes of at most ``chunk``
+    elements (``THETA_CHUNK``): the int64 hash temporaries of a
+    full-width leaf never exist whole."""
+    chunk = chunk or THETA_CHUNK
+    if not is_dtensor(leaf):
+        n = leaf.numel()
+        res = torch.empty((n,), dtype=dtype, device=leaf.device)
+        for start in range(0, n, chunk):
+            stop = min(n, start + chunk)
+            res[start:stop] = theta_range(lseed, start, stop, dtheta, dtype,
+                                          leaf.device)
+        return res.reshape(leaf.shape)
+    from torch.distributed.tensor import DTensor
+    local_shape, offset = shard_layout(leaf)
+    dev = leaf.to_local().device
+    res = torch.empty(local_shape, dtype=dtype, device=dev)
+    if res.numel():
+        rows = local_shape[0] if local_shape else 1
+        flat = res.reshape(rows, -1)
+        step_rows = max(1, chunk // max(1, flat.shape[1]))
+        for r0 in range(0, rows, step_rows):
+            r1 = min(rows, r0 + step_rows)
+            idx = shard_index(tuple(leaf.shape), local_shape, offset,
+                              rows=(r0, r1) if local_shape else None,
+                              device=dev)
+            flat[r0:r1] = (rademacher_signs(lseed, idx) * f32(dtheta)).to(
+                dtype).reshape(r1 - r0, -1)
+    return DTensor.from_local(res, leaf.device_mesh, leaf.placements,
+                              run_check=False, shape=leaf.shape,
+                              stride=leaf.stride())
+
+
+def _as_leaf(values, leaf, dtype):
+    """Flat per-element values shaped as ``leaf`` — a DTensor with the
+    leaf's placements when the leaf is one."""
+    if not is_dtensor(leaf):
+        return values.reshape(leaf.shape).to(dtype)
+    from torch.distributed.tensor import DTensor
+    local = values.reshape(shard_layout(leaf)[0]).to(dtype)
+    return DTensor.from_local(local, leaf.device_mesh, leaf.placements,
+                              run_check=False, shape=leaf.shape,
+                              stride=leaf.stride())
+
+
 def generate(params_like, *, ptype, step: int, seed: int, dtheta: float,
              tau_p: int = 1, total: Optional[int] = None):
     """The perturbation pytree θ̃ for global timestep ``step`` (host int).
@@ -112,26 +215,29 @@ def generate(params_like, *, ptype, step: int, seed: int, dtheta: float,
     leaves, treedef = tree_flatten(params_like)
     out = []
     for (lid, offset, n), leaf in zip(metas, leaves):
-        dev = leaf.device
         if ptype == "rademacher":
-            sgn = rademacher_signs(leaf_seed(seed, pert_step, lid),
-                                   _iota(n, dev))
-            pert = sgn * f32(dtheta)
-        elif ptype == "walsh":
-            idx = (_iota(n, dev) + _u32(offset)) & MASK
+            out.append(_rademacher_values(
+                leaf, leaf_seed(seed, pert_step, lid), dtheta, leaf.dtype))
+            continue
+        iota = _leaf_index(leaf, n)
+        if ptype == "walsh":
+            idx = (iota + _u32(offset)) & MASK
             pert = _walsh_signs(pert_step, idx) * f32(dtheta)
         elif ptype == "sequential":
             active = pert_step % int(total)
-            idx = _iota(n, dev) + offset
+            idx = iota + offset
             pert = (idx == active).to(torch.float32) * f32(dtheta)
         else:   # sinusoidal
-            idx = torch.arange(n, dtype=torch.float32, device=dev) \
-                + f32(float(offset))
+            if is_dtensor(leaf):
+                idx = iota.to(torch.float32) + f32(float(offset))
+            else:
+                idx = torch.arange(n, dtype=torch.float32,
+                                   device=leaf.device) + f32(float(offset))
             f = (idx + f32(1.0)) / f32(float(total + 1)) \
                 * f32(0.5 / float(tau_p))
             t = f32(float(step))
             pert = f32(dtheta) * torch.sin(f32(2.0 * math.pi) * f * t)
-        out.append(pert.reshape(leaf.shape).to(leaf.dtype))
+        out.append(_as_leaf(pert, leaf, leaf.dtype))
     return tree_unflatten(treedef, out)
 
 
@@ -142,9 +248,8 @@ def generate_signs_only(params_like, *, step: int, seed: int,
     leaves, treedef = tree_flatten(params_like)
     out = []
     for (lid, _, n), leaf in zip(leaf_meta(params_like), leaves):
-        sgn = rademacher_signs(leaf_seed(seed, pert_step, lid),
-                               _iota(n, leaf.device))
-        out.append(sgn.reshape(leaf.shape))
+        out.append(_rademacher_values(
+            leaf, leaf_seed(seed, pert_step, lid), 1.0, torch.float32))
     return tree_unflatten(treedef, out)
 
 
@@ -182,12 +287,16 @@ def perturbed_tree(params, *, step: int, seed: int, dtheta: float,
     float order), formed leaf by leaf in passes of at most ``chunk``
     elements: neither θ̃ nor its int64 hash temporaries ever exist whole,
     which a full-width materializing probe could not hold beside the
-    params."""
+    params.  A DTensor leaf is formed on its local shard, in passes of
+    whole leading-dim rows."""
     pert_step = int(step) // int(tau_p)
     leaves, treedef = tree_flatten(params)
     out = []
     for lid, leaf in enumerate(leaves):
         lseed = leaf_seed(seed, pert_step, lid)
+        if is_dtensor(leaf):
+            out.append(_perturbed_shard(leaf, lseed, dtheta, sign, chunk))
+            continue
         flat = leaf.reshape(-1)
         res = torch.empty_like(flat)
         for start in range(0, flat.numel(), chunk):
@@ -197,6 +306,34 @@ def perturbed_tree(params, *, step: int, seed: int, dtheta: float,
             res[start:stop] = apply_signed(flat[start:stop], theta, sign)
         out.append(res.reshape(leaf.shape))
     return tree_unflatten(treedef, out)
+
+
+def _perturbed_shard(leaf, lseed, dtheta, sign, chunk):
+    """``perturbed_tree``'s leaf + sign·θ̃ of a DTensor leaf, on its local
+    shard: rows of the local block at a time, each element hashed at its
+    global index."""
+    from torch.distributed.tensor import DTensor
+    local = leaf.to_local()
+    local_shape, offset = shard_layout(leaf)
+    res = torch.empty_like(local)
+    if local.numel():
+        rows = local_shape[0] if local.dim() else 1
+        per_row = max(1, local.numel() // max(rows, 1))
+        step_rows = max(1, chunk // per_row)
+        flat_res = res.reshape(rows, -1)
+        flat_in = local.reshape(rows, -1)
+        for r0 in range(0, rows, step_rows):
+            r1 = min(rows, r0 + step_rows)
+            idx = shard_index(tuple(leaf.shape), local_shape, offset,
+                              rows=(r0, r1) if local.dim() else None,
+                              device=local.device)
+            theta = (rademacher_signs(lseed, idx) * f32(dtheta)).to(
+                leaf.dtype)
+            flat_res[r0:r1] = apply_signed(
+                flat_in[r0:r1].reshape(-1), theta, sign).reshape(r1 - r0, -1)
+    return DTensor.from_local(res, leaf.device_mesh, leaf.placements,
+                              run_check=False, shape=leaf.shape,
+                              stride=leaf.stride())
 
 
 def shifted_leaf_seed(lseed: int, offset_elems: int) -> int:

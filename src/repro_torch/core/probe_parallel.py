@@ -12,9 +12,20 @@ data parallelism; the pods share nothing but the k scalars C̃_k.  This
 axis exists only because MGD is forward-only.
 
 The reference runs the pods under ``shard_map``, one per device of a
-mesh axis, and all-gathers the k scalars.  Here the k pods run **one
-after another on one card**, pod 0 first; the stacked ``all_c[k]`` is
-the all-gather's twin.  The update is then applied once: on the fused
+mesh axis, and all-gathers the k scalars.  The port runs them two ways:
+
+* on a ``LocalMesh`` the k pods run **one after another on one card**,
+  pod 0 first; the stacked ``all_c[k]`` is the all-gather's twin;
+* on a ``torch.distributed`` DeviceMesh whose probe axis spans ranks,
+  **each rank is a pod** (with an optional data axis: a pod's data
+  ranks split its batch block).  The k scalars C̃ are ``all_gather``ed
+  over the pod group, and every rank applies the same update, so no
+  parameter is communicated.  A pod's data-axis costs are gathered and
+  summed in rank order, not ``all_reduce``d, so the result does not
+  depend on the backend's reduction order: the step equals
+  ``LocalMesh``'s bit for bit.
+
+The update is then applied once: on the fused
 path one ``kernels.ops.mgd_update_window_group`` launch updates every
 ndim ≥ 2 leaf with J = k windows (seeds ``pod_seed(seed, k)``), small
 leaves take the sequential k-loop; the materializing path is the
@@ -94,26 +105,46 @@ def _split_batch(batch, n_blocks: int, block: int):
 
 
 def _resolve_batch_specs(batch_specs, probe_axis, data_axis):
-    """(pods split the batch?, data sub-blocks per pod) for a spelling of
-    the reference's batch ``PartitionSpec``: ``None`` → the default (the
-    leading dim over the probe axis, times the data axis), ``()`` →
-    replicated (every pod probes the whole batch, the reference's
-    ``P()``), ``(probe_axis,)`` or ``(probe_axis, data_axis)`` → the
-    explicit default."""
+    """The mesh axes the batch's leading dim is split over, outer first,
+    for a spelling of the reference's batch ``PartitionSpec``: ``None``
+    → the default (the probe axis, then the data axis if any); a
+    ``sharding.P`` whose first entry names the axes (and whose other
+    entries are ``None``); or the leading dim's axes as a name or a
+    tuple of names — ``()`` replicates (every pod probes the whole
+    batch, the reference's ``P()``)."""
     if batch_specs is None:
-        return True, data_axis is not None
-    spec = (batch_specs,) if isinstance(batch_specs, str) \
-        else tuple(batch_specs)
-    if spec == ():
-        return False, False
-    if spec == (probe_axis,):
-        return True, False
-    if data_axis is not None and spec == (probe_axis, data_axis):
-        return True, True
-    raise ValueError(
-        f"batch_specs={batch_specs!r}: the port places a batch as () "
-        f"(replicated), ({probe_axis!r},) or ({probe_axis!r}, data_axis) "
-        f"— other placements wait for the port of the mesh (ROADMAP A15)")
+        return (probe_axis,) if data_axis is None \
+            else (probe_axis, data_axis)
+    from repro_torch.distributed.sharding import P
+    if isinstance(batch_specs, P):
+        entries = tuple(batch_specs)
+        if any(e is not None for e in entries[1:]):
+            spec = None
+        else:
+            first = entries[0] if entries else None
+            spec = () if first is None else (
+                (first,) if isinstance(first, str) else tuple(first))
+    else:
+        spec = (batch_specs,) if isinstance(batch_specs, str) \
+            else tuple(batch_specs)
+    known = (probe_axis,) + ((data_axis,) if data_axis is not None else ())
+    if spec is None or len(set(spec)) != len(spec) \
+            or not set(spec) <= set(known):
+        raise ValueError(
+            f"batch_specs={batch_specs!r}: a probe-parallel batch splits "
+            f"its leading dim only, over the probe axis {probe_axis!r}"
+            + (f" and the data axis {data_axis!r}" if data_axis else "")
+            + " (outer first, in either order), or not at all: ()")
+    return tuple(spec)
+
+
+def _block(split, sizes, coords):
+    """(blocks, this block's index) of a leading dim split over the axes
+    ``split`` (outer first) at mesh coordinates ``coords``."""
+    n, i = 1, 0
+    for a in split:
+        n, i = n * sizes[a], i * sizes[a] + coords[a]
+    return n, i
 
 
 def _pod_coefs(cfg, all_c, n: int):
@@ -192,9 +223,11 @@ def build_probe_parallel_step(
             f"probe-parallel uses central differences (its per-pod probe "
             f"shares no C₀ memory); got mode={cfg.mode!r} — set "
             f'mode="central"')
-    if probe_axis not in mesh.axis_names:
+    from repro_torch.distributed import sharding as shd
+    axis_names, sizes = shd.mesh_axes(mesh)
+    if probe_axis not in axis_names:
         raise ValueError(
-            f"mesh axes {tuple(mesh.axis_names)} have no probe axis "
+            f"mesh axes {tuple(axis_names)} have no probe axis "
             f"{probe_axis!r} — name one axis of the mesh after the probe "
             f"dimension (or pass probe_axis=)")
     if data_axis is not None:
@@ -203,15 +236,16 @@ def build_probe_parallel_step(
                 f"data_axis={data_axis!r} IS the probe axis — each pod "
                 f"already gets its own batch shard along it; a data axis "
                 f"shards *within* a pod")
-        if data_axis not in mesh.axis_names:
+        if data_axis not in axis_names:
             raise ValueError(
-                f"mesh axes {tuple(mesh.axis_names)} have no data axis "
+                f"mesh axes {tuple(axis_names)} have no data axis "
                 f"{data_axis!r}")
-    if param_specs is not None:
+    ranks = shd.is_device_mesh(mesh)
+    if param_specs is not None and cfg.fused:
         raise NotImplementedError(
-            "param_specs= shards parameters over a mesh, which is not "
-            "ported to repro_torch yet (ROADMAP A15, distribution); the "
-            "k pods here share one card's replicated params")
+            "param_specs= with cfg.fused=True: the fused probe on a "
+            "parameter-sharded mesh is ROADMAP A15b; the unfused path "
+            "takes param_specs")
     from repro_torch.core.mgd import _resolve_plant
     plant = _resolve_plant(loss_fn, cfg, probe_fn=probe_fn, plant=plant)
     if plant.meta.external:
@@ -227,10 +261,13 @@ def build_probe_parallel_step(
         if cfg.tau_theta != 1 or cfg.replay:
             raise ValueError("fused probe-parallel updates every step "
                              "(tau_theta=1, no replay)")
-    n_pods = mesh.shape[probe_axis]
-    n_data = mesh.shape[data_axis] if data_axis is not None else 1
-    split, sub = _resolve_batch_specs(batch_specs, probe_axis, data_axis)
+    n_pods = sizes[probe_axis]
+    split = _resolve_batch_specs(batch_specs, probe_axis, data_axis)
+    sub = data_axis is not None and data_axis in split
+    n_data = sizes[data_axis] if sub else 1
     half = f32(0.5)
+    place_params = _param_placer(param_specs, mesh, probe_axis, data_axis) \
+        if param_specs is not None and ranks else None
 
     def pod_pair(params, step, batch, k):
         if cfg.fused:
@@ -246,23 +283,26 @@ def build_probe_parallel_step(
         return plant.read_cost_pair(params, theta, batch, step=step,
                                     tag=2 * k)
 
-    def pod_costs(params, step, batch, k):
-        if not split:
-            return pod_pair(params, step, batch, k)
-        if not sub:
-            return pod_pair(params, step, _split_batch(batch, n_pods, k), k)
+    def block_pair(params, step, batch, k, q):
+        n, i = _block(split, sizes, {probe_axis: k, data_axis: q})
+        block = batch if n == 1 else _split_batch(batch, n, i)
+        return pod_pair(params, step, block, k)
+
+    def data_mean(pairs):
         # plain data parallelism inside the pod: its C is the mean over
-        # its d sub-blocks' costs
-        pairs = [pod_pair(params, step,
-                          _split_batch(batch, n_pods * n_data,
-                                       k * n_data + q), k)
-                 for q in range(n_data)]
+        # its d sub-blocks' costs, summed in data-axis order
         d = f32(float(n_data))
         return (torch.stack([c for c, _ in pairs]).sum() / d,
                 torch.stack([c for _, c in pairs]).sum() / d)
 
-    def step_fn(params, step, batch):
-        step = int(step)
+    def pod_costs(params, step, batch, k):
+        if not sub:
+            return block_pair(params, step, batch, k, 0)
+        return data_mean([block_pair(params, step, batch, k, q)
+                          for q in range(n_data)])
+
+    def local_scalars(params, step, batch):
+        """[k] C̃ and pod 0's cost, the pods run one after another."""
         cs = []
         cost0 = None
         for k in range(n_pods):
@@ -270,7 +310,38 @@ def build_probe_parallel_step(
             cs.append((half * (c_plus - c_minus)).float())
             if k == 0:
                 cost0 = half * (c_plus + c_minus)
-        all_c = torch.stack(cs)                        # the all-gather
+        return torch.stack(cs), cost0                  # the all-gather
+
+    def rank_scalars(params, step, batch):
+        """[k] C̃ and pod 0's cost, this rank being one pod (and one
+        data block of it): the pod's data costs and then the pods' C̃
+        are all-gathered, in rank order."""
+        k = mesh.get_local_rank(probe_axis)
+        q = mesh.get_local_rank(data_axis) if sub else 0
+        if place_params is None:
+            pair = torch.stack(block_pair(params, step, batch, k, q))
+        else:
+            # params sharded over the sub-mesh: the loss runs on DTensors
+            # there and its costs come back as plain replicated scalars
+            with shd.use_mesh(place_params.mesh), shd.mesh_ops():
+                pair = torch.stack([shd.full(c) for c in
+                                    block_pair(params, step, batch, k, q)])
+        if sub:
+            got = _all_gather(pair, mesh.get_group(data_axis))
+            pair = torch.stack(data_mean([(g[0], g[1]) for g in got]))
+        c_local = (half * (pair[0] - pair[1])).float()
+        cost = (half * (pair[0] + pair[1])).float()
+        got = _all_gather(torch.stack([c_local, cost]),
+                          mesh.get_group(probe_axis))
+        return torch.stack([g[0] for g in got]), got[0][1]
+
+    scalars = rank_scalars if ranks else local_scalars
+
+    def step_fn(params, step, batch):
+        step = int(step)
+        if place_params is not None:
+            params = place_params(params)
+        all_c, cost0 = scalars(params, step, batch)
         coefs = _pod_coefs(cfg, all_c, n_pods)
         if cfg.fused:
             updated = _fused_pod_update(cfg, params, step, coefs, n_pods)
@@ -281,6 +352,51 @@ def build_probe_parallel_step(
                             "c_tilde_mean": torch.mean(torch.abs(all_c))}
 
     return step_fn
+
+
+def _all_gather(t, group):
+    """``t`` of every rank of ``group``, in group-rank order."""
+    import torch.distributed as dist
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+def _param_placer(param_specs, mesh, probe_axis, data_axis):
+    """Params → DTensors on the sub-mesh of the axes that are neither
+    the probe nor the data axis (every rank of it probes the same batch
+    block), under ``param_specs``: an ordered (regex, logical-names)
+    rules list, or a tree of ``sharding.P``.  Leaves already placed are
+    kept."""
+    from repro_torch.distributed import sharding as shd
+    from .utils import tree_leaves
+    rest = tuple(a for a in mesh.mesh_dim_names
+                 if a not in (probe_axis, data_axis))
+    if not rest:
+        raise ValueError(
+            f"param_specs= needs a mesh axis besides the probe axis "
+            f"{probe_axis!r} and the data axis to shard params over; "
+            f"mesh axes {tuple(mesh.mesh_dim_names)}")
+    sub = mesh[rest]
+    rules = _is_spec_rules(param_specs)
+
+    def place(params):
+        if any(shd.is_dtensor(x) for x in tree_leaves(params)):
+            return params
+        specs = (shd.param_specs(params, list(param_specs), sub) if rules
+                 else param_specs)
+        return tree_map(lambda x, s: shd.place(x, s, sub), params, specs)
+
+    place.mesh = sub
+    return place
+
+
+def _is_spec_rules(specs) -> bool:
+    """True when ``specs`` is an ordered (regex, logical-names) rules
+    list rather than a spec tree."""
+    return (isinstance(specs, (list, tuple)) and bool(specs)
+            and all(isinstance(r, tuple) and len(r) == 2
+                    and isinstance(r[0], str) for r in specs))
 
 
 def _nanmedian(x):

@@ -87,6 +87,36 @@ def tree_map(fn, tree, *rest):
                           [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tensors_of(tree):
+    """The tensor leaves of ``tree`` (an op's args or outputs)."""
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor`` (a tensor placed on
+    a device mesh), without importing torch.distributed."""
+    return type(x) is not torch.Tensor and hasattr(x, "placements")
+
+
+def tree_paths(tree, prefix=()):
+    """``[(path tuple, leaf)]`` in flatten order (dict keys sorted,
+    sequences by index: ``jax.tree_util.tree_flatten_with_path``'s)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, c in enumerate(tree)
+                for pl in tree_paths(c, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def path_str(path) -> str:
+    """A path as the reference's '/'-joined keys."""
+    return "/".join(str(k) for k in path)
+
+
 def tree_size(tree) -> int:
     """Total number of scalar parameters in a pytree."""
     return sum(math.prod(x.shape) for x in tree_leaves(tree))

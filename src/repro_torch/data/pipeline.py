@@ -6,9 +6,9 @@ function of the index, so a run is deterministic across restarts.
 Batch i of a procedural sampler is ``batch_fn(fold_in(prng_key(seed), i),
 B)`` on ``core.rng``'s threefry keys: the reference's batch i.
 
+``shard_batch`` places a batch on a device mesh (batch dim → "batch");
 ``shard_chip_batch`` cuts a host batch into the contiguous per-chip
-slices a chip farm consumes (the reference's mesh placement,
-``shard_batch``, waits for ROADMAP A15).
+slices a chip farm consumes.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import rng
-from repro_torch.core.utils import tree_map
+from repro_torch.core.utils import path_str, tree_map, tree_paths
 from repro_torch.device import resolve_device
 from . import tasks
 
@@ -64,11 +64,13 @@ def lm_sampler(batch_size: int, seq_len: int, vocab: int, *, seed=0,
 
 
 def shard_batch(batch, mesh):
-    """Mesh placement of a batch: not ported (ROADMAP A15)."""
-    raise NotImplementedError(
-        "shard_batch places a batch on a device mesh, which is not ported "
-        "to repro_torch yet (ROADMAP A15, distribution); shard_chip_batch "
-        "cuts host slices per chip")
+    """Place a batch onto the DeviceMesh ``mesh``, batch dim →
+    ("pod", "data"): every rank holds the whole batch and keeps its
+    block (no communication)."""
+    from repro_torch.distributed.sharding import logical_spec, place
+
+    return tree_map(lambda x: place(
+        x, logical_spec(tuple(x.shape), ["batch"], mesh), mesh), batch)
 
 
 def shard_chip_batch(batch, n_chips: int, chip: int):
@@ -83,28 +85,13 @@ def shard_chip_batch(batch, n_chips: int, chip: int):
     return tree_map(one, batch)
 
 
-def _leaf_paths(node, path=()):
-    """``(path, leaf)`` in flatten order: dict keys sorted, sequences by
-    index (``jax.tree_util.tree_flatten_with_path``'s order)."""
-    if node is None:
-        return
-    if isinstance(node, dict):
-        for k in sorted(node):
-            yield from _leaf_paths(node[k], path + (k,))
-    elif isinstance(node, (list, tuple)):
-        for i, c in enumerate(node):
-            yield from _leaf_paths(c, path + (i,))
-    else:
-        yield path, node
-
-
 def check_chip_shardable(batch, n_chips: int) -> None:
     """Raise unless every batch leaf's leading dim splits evenly into
     ``n_chips`` contiguous shards."""
-    for path, leaf in _leaf_paths(batch):
+    for path, leaf in tree_paths(batch):
         shape = getattr(leaf, "shape", ())
         if not shape or shape[0] % n_chips:
-            name = "/".join(str(k) for k in path)
+            name = path_str(path)
             raise ValueError(
                 f"batch leaf {name!r} with shape {tuple(shape)} cannot be "
                 f"sharded over {n_chips} chips — its leading dim must be a "

@@ -150,12 +150,21 @@ def decode_attention(
     k_cache: torch.Tensor,   # [B, S_max, KVH, D]
     v_cache: torch.Tensor,   # [B, S_max, KVH, D]
     length,                  # valid cache length (new token included)
+    *,
+    seq_offset: int = 0,
+    combine=None,
 ) -> torch.Tensor:
     """Single-token attention against the cache.  Returns [B, 1, H, Dv].
 
     Grouped layout (``bhgd,bshd->bhgs``): the KV heads are never repeated.
     Scores and probabilities are f32; positions ≥ ``length`` (a host int
-    or a 0-d tensor) are masked with ``NEG_INF``."""
+    or a 0-d tensor) are masked with ``NEG_INF``.
+
+    A cache sharded along its sequence (``sharding.decode_per_shard``)
+    passes the block's first position as ``seq_offset`` and
+    ``combine(x, op)``, the reduction (``"max"``/``"sum"``) over the
+    sequence shards: the softmax is then taken flash-decoding style,
+    from the shards' partial max, sum and values."""
     b, _, h, d = q1.shape
     kvh = k_cache.shape[2]
     dv = v_cache.shape[-1]
@@ -163,8 +172,15 @@ def decode_attention(
     scale = f32(1.0 / np.sqrt(d))
     qg = q1.reshape(b, kvh, g, d)
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
-    pos = torch.arange(k_cache.shape[1], device=k_cache.device)
+    pos = torch.arange(k_cache.shape[1], device=k_cache.device) + seq_offset
     s = torch.where(pos[None, None, None, :] < length, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    if combine is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    else:
+        m = combine(s.amax(dim=-1), "max")
+        e = torch.exp(s - m[..., None])
+        den = combine(e.sum(dim=-1), "sum")
+        out = combine(torch.einsum("bhgs,bshd->bhgd", e, v_cache.float()),
+                      "sum") / den[..., None]
     return out.reshape(b, 1, h, dv).to(q1.dtype)

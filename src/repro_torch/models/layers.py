@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import perturbations as pert
 from repro_torch.core.perturbations import MASK
-from repro_torch.core.utils import f32
+from repro_torch.core.utils import f32, is_dtensor
 from repro_torch.kernels import ops as kops
 
 
@@ -101,7 +101,16 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p, ids):
-    return p["table"][ids.long()]
+    table = p["table"]
+    if is_dtensor(table):
+        # a DTensor table: ``embedding`` is the gather DTensor shards over
+        # the vocabulary (masked lookup + reduction); the same rows.  The
+        # reduction is settled here, then the rows placed (DTensor cannot
+        # turn the masked partial into a batch shard in one move), before
+        # any op reshapes them.
+        from repro_torch.distributed.sharding import settle, shard
+        return shard(settle(F.embedding(ids.long(), table)), "batch")
+    return table[ids.long()]
 
 
 def glu_mlp_init(gen: torch.Generator, d: int, d_ff: int,

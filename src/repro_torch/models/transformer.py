@@ -22,10 +22,19 @@ codebook embeddings summed), or stub-frontend ``embeds`` [B, S, d] in
 place of the embedding, and optional ``positions`` ([B, S, 3] for
 M-RoPE).  Layers are stacked on a leading L dim, as in the reference, so
 leaf ids and sign indices match it; the reference's ``lax.scan`` over
-layers is a Python loop here, with a host-int layer index.  Sharding
-annotations are dropped: ``fsdp`` and ``seq_parallel`` only place
-tensors on a mesh, and the port runs on one card, as the reference does
-on a one-device mesh.
+layers is a Python loop here, with a host-int layer index.  The
+reference's sharding annotations stand at its sites as
+``distributed.sharding.shard``: a no-op without an active DeviceMesh;
+under one (``sharding.use_mesh``, params placed by
+``launch.specs.param_shardings``) the dense family's forward, loss,
+prefill and decode run on DTensors.  There, tensors made inside the
+model (positions, masks, constants) count as replicated
+(``sharding.mesh_ops``), heads are viewed only on shards that keep
+whole head groups (``_heads``), attention runs on each (batch, head)
+shard (``sharding.per_shard``), decode attention over a
+sequence-sharded cache combines its shards' softmax
+(``sharding.decode_per_shard``), and the loss is vocab-parallel
+(``sharding.vocab_parallel_nll``).
 
 Dense GQA decoders (incl. the vlm/audio backbones) probe through the
 perturbed-matmul kernels (``supports_fused_probe``); MoE, MLA and the
@@ -52,9 +61,15 @@ import torch
 
 from repro_torch.core import perturbations as pert
 from repro_torch.core.perturbations import leaf_seed
-from repro_torch.core.utils import (leaf_id_tree, tree_flatten, tree_map,
-                                    tree_unflatten)
+from repro_torch.core.utils import (is_dtensor, leaf_id_tree, tree_flatten,
+                                    tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (active_mesh,
+                                              decode_per_shard, full,
+                                              is_device_mesh, logical_spec,
+                                              mesh_ops, per_shard,
+                                              shard, vocab_parallel_nll,
+                                              write_at)
 from .attention import chunked_causal_attention, decode_attention
 from .config import ArchConfig
 from .layers import (dense, dense_init, embed, embedding_init, glu_mlp,
@@ -71,6 +86,22 @@ from .rwkv6 import (rwkv6_block, rwkv6_block_init, rwkv6_block_step,
 _INIT_TAG = 0x7F4A
 _EMBED_LAYER = 0xFFFF   # generator key of the embedding/head parameters
 _SHARED_LAYER = 0xFFFE  # generator key of the hybrid's shared block
+
+
+def check_mesh_family(cfg: ArchConfig) -> None:
+    """Under an active DeviceMesh only the dense family runs sharded
+    (the dense GQA decoders and the vlm/audio backbones); the others
+    raise here, at the model's entry, not somewhere inside it."""
+    if active_mesh() is None or not is_device_mesh(active_mesh()):
+        return
+    if not supports_fused_probe(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family"
+            f"{' with MLA' if cfg.use_mla else ''}"
+            f"{' with MoE' if cfg.n_experts else ''} does not run on a "
+            f"device mesh yet — MoE's expert axis, MLA's latent caches and "
+            f"the recurrent states are ROADMAP A15b; the dense family "
+            f"runs sharded")
 
 
 def supports_fused_probe(cfg: ArchConfig) -> bool:
@@ -109,12 +140,30 @@ def _rope(cfg, x, positions):
     return apply_rope(x, positions, cfg.rope_theta)
 
 
+def _heads(y, n: int, cfg: ArchConfig):
+    """[B, S, n·dh] → [B, S, n, dh].  Under a mesh the projection's
+    shards are first made to hold whole KV-head groups (sharded over
+    "model" only where the KV-head count divides it, else replicated):
+    DTensor cannot view a shard that splits a head, where GSPMD would
+    pad."""
+    b, s, _ = y.shape
+    if active_mesh() is not None:
+        y = shard(y, "batch", None,
+                  "model" if _kv_heads_shard(cfg) else None)
+    return y.reshape(b, s, n, cfg.head_dim)
+
+
+def _kv_heads_shard(cfg: ArchConfig) -> bool:
+    """True under a mesh whose "model" axes divide the KV-head count."""
+    return (active_mesh() is not None
+            and logical_spec((cfg.kv_heads,), ["model"])[0] is not None)
+
+
 def _qkv(p, x, positions, cfg):
-    b, s, _ = x.shape
-    h, kvh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, s, h, dh)
-    k = dense(p["wk"], x).reshape(b, s, kvh, dh)
-    v = dense(p["wv"], x).reshape(b, s, kvh, dh)
+    h, kvh = cfg.n_heads, cfg.kv_heads
+    q = _heads(dense(p["wq"], x), h, cfg)
+    k = _heads(dense(p["wk"], x), kvh, cfg)
+    v = _heads(dense(p["wv"], x), kvh, cfg)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -123,15 +172,27 @@ def _qkv(p, x, positions, cfg):
 
 def _attend(cfg, q, k, v):
     b, s = q.shape[:2]
-    y = chunked_causal_attention(
-        q, k, v, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
-        impl=cfg.attn_impl)
+
+    def attend(q, k, v):
+        return chunked_causal_attention(
+            q, k, v, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
+            impl=cfg.attn_impl)
+
+    # under a mesh each (batch, head) shard attends on its own rank
+    y = per_shard(attend, q, k, v)
     return y.reshape(b, s, -1)
+
+
+def _shard_heads(cfg, *xs):
+    """The reference's ``shard(x, "batch", None, "model", None)`` on
+    q/k/v, with the head dim sharded only where ``_heads`` kept it."""
+    heads = "model" if _kv_heads_shard(cfg) else None
+    return tuple(shard(x, "batch", None, heads, None) for x in xs)
 
 
 def attn_apply(p, x, positions, cfg: ArchConfig):
     """Full-sequence causal attention.  Returns (y, (k, v))."""
-    q, k, v = _qkv(p, x, positions, cfg)
+    q, k, v = _shard_heads(cfg, *_qkv(p, x, positions, cfg))
     return dense(p["wo"], _attend(cfg, q, k, v)), (k, v)
 
 
@@ -141,9 +202,12 @@ def attn_decode_step(p, x1, positions, kcache, vcache, length: int,
     written in place at ``length − 1``.  Returns (y, kcache, vcache)."""
     b = x1.shape[0]
     q, k, v = _qkv(p, x1, positions, cfg)
-    kcache[:, length - 1] = k[:, 0].to(kcache.dtype)
-    vcache[:, length - 1] = v[:, 0].to(vcache.dtype)
-    y = decode_attention(q, kcache, vcache, length)
+    write_at(kcache, 1, length - 1, k[:, 0])
+    write_at(vcache, 1, length - 1, v[:, 0])
+    if is_dtensor(kcache):
+        y = decode_per_shard(decode_attention, q, kcache, vcache, length)
+    else:
+        y = decode_attention(q, kcache, vcache, length)
     return dense(p["wo"], y.reshape(b, 1, -1)), kcache, vcache
 
 
@@ -176,6 +240,7 @@ def _mlp_part(p, x, cfg: ArchConfig):
 def block_apply(p, x, positions, cfg: ArchConfig):
     """Pre-norm residual block.  Returns (x', cache payload): (k, v), or
     for MLA (c_kv, k_rope)."""
+    seq_ax = "sp" if cfg.seq_parallel else None
     xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.use_mla:
         att, cache = mla_attention(
@@ -183,9 +248,9 @@ def block_apply(p, x, positions, cfg: ArchConfig):
             kv_block=cfg.attn_kv_block, impl=cfg.attn_impl)
     else:
         att, cache = attn_apply(p["attn"], xn, positions, cfg)
-    x = x + att
+    x = shard(x + att, "batch", seq_ax, None)
     x = x + _mlp_part(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-    return x, cache
+    return shard(x, "batch", seq_ax, None), cache
 
 
 def block_decode(p, x1, positions, layer_cache, length: int,
@@ -235,10 +300,12 @@ def _codebook_ids(cfg: ArchConfig, tokens):
 def _embed_tokens(p, cfg: ArchConfig, batch):
     """Tokens or stub-frontend embeddings → [B, S, d]."""
     if "embeds" in batch:
-        return batch["embeds"]
-    if cfg.n_codebooks:
-        return embed(p["tok"], _codebook_ids(cfg, batch["tokens"])).sum(1)
-    return embed(p["tok"], batch["tokens"])
+        x = batch["embeds"]
+    elif cfg.n_codebooks:
+        x = embed(p["tok"], _codebook_ids(cfg, batch["tokens"])).sum(1)
+    else:
+        x = embed(p["tok"], batch["tokens"])
+    return shard(x, "batch", "sp" if cfg.seq_parallel else None, None)
 
 
 def _logits(p, cfg: ArchConfig, x):
@@ -246,8 +313,12 @@ def _logits(p, cfg: ArchConfig, x):
         logits = x @ p["tok"]["table"].T
     else:
         logits = dense(p["head"], x)
+    logits = shard(logits, "batch", None, "model")
     if cfg.n_codebooks:
         b, s, _ = logits.shape
+        if active_mesh() is not None:
+            # the codebook view splits the sharded vocabulary dim
+            logits = shard(logits, "batch", None, None)
         logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab)
     return logits
 
@@ -401,6 +472,12 @@ def model_forward(params, cfg: ArchConfig, batch, *, return_state=False,
     stacked on the blocks, "attn_kv": (k, v) [G, B, S, KVH, dh]}``.  A
     recurrent model starts from ``state`` (that structure; zeros when
     None)."""
+    check_mesh_family(cfg)
+    with mesh_ops():
+        return _model_forward(params, cfg, batch, return_state, state)
+
+
+def _model_forward(params, cfg: ArchConfig, batch, return_state, state):
     x = _embed_tokens(params["embed"], cfg, batch)
     b, s, _ = x.shape
     positions = _positions(cfg, batch, s, b, x.device)
@@ -427,19 +504,27 @@ def model_forward(params, cfg: ArchConfig, batch, *, return_state=False,
 
 
 def _loss_from_logits(logits, labels):
-    logits = logits.float()
-    labels = labels.long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    nll = logz - gold
+    if is_dtensor(logits):
+        nll = vocab_parallel_nll(logits, labels)
+        labels = labels.long()
+    else:
+        logits = logits.float()
+        labels = labels.long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0)[..., None])[..., 0]
+        nll = logz - gold
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def model_loss(params, cfg: ArchConfig, batch):
-    """Token-mean softmax cross-entropy — MGD's scalar cost."""
-    return _loss_from_logits(model_forward(params, cfg, batch),
-                             batch["labels"])
+    """Token-mean softmax cross-entropy — MGD's scalar cost.  Under a
+    mesh the cost is the plain replicated scalar (``full``): the one
+    number every rank's update reads."""
+    logits = model_forward(params, cfg, batch)
+    with mesh_ops():
+        return full(_loss_from_logits(logits, batch["labels"]))
 
 
 # ---------------------------------------------------------------------------
@@ -455,13 +540,12 @@ def model_loss(params, cfg: ArchConfig, batch):
 
 
 def _pqkv(p, xs, positions, cfg, ids, probe, layer):
-    b, s, _ = xs[0].shape
-    h, kvh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    qs = tuple(q.reshape(b, s, h, dh)
+    h, kvh = cfg.n_heads, cfg.kv_heads
+    qs = tuple(_heads(q, h, cfg)
                for q in pdense(p["wq"], xs, ids["wq"], probe, layer=layer))
-    ks = tuple(k.reshape(b, s, kvh, dh)
+    ks = tuple(_heads(k, kvh, cfg)
                for k in pdense(p["wk"], xs, ids["wk"], probe, layer=layer))
-    vs = tuple(v.reshape(b, s, kvh, dh)
+    vs = tuple(_heads(v, kvh, cfg)
                for v in pdense(p["wv"], xs, ids["wv"], probe, layer=layer))
     if cfg.qk_norm:
         qs = prmsnorm(p["q_norm"], qs, ids["q_norm"], probe, layer=layer,
@@ -475,7 +559,8 @@ def _pqkv(p, xs, positions, cfg, ids, probe, layer):
 
 def _pattn_apply(p, xs, positions, cfg: ArchConfig, ids, probe, layer):
     qs, ks, vs = _pqkv(p, xs, positions, cfg, ids, probe, layer)
-    ys = tuple(_attend(cfg, q, k, v) for q, k, v in zip(qs, ks, vs))
+    ys = tuple(_attend(cfg, *_shard_heads(cfg, q, k, v))
+               for q, k, v in zip(qs, ks, vs))
     return pdense(p["wo"], ys, ids["wo"], probe, layer=layer)
 
 
@@ -488,17 +573,18 @@ def _pglu_mlp(p, xs, ids, probe, layer):
 
 
 def _pblock_apply(p, xs, positions, cfg: ArchConfig, ids, probe, layer):
+    seq_ax = "sp" if cfg.seq_parallel else None
     xn = prmsnorm(p["ln1"], xs, ids["ln1"], probe, layer=layer,
                   eps=cfg.norm_eps)
     att = _pattn_apply(p["attn"], xn, positions, cfg, ids["attn"], probe,
                        layer)
-    xs = tuple(x + a for x, a in zip(xs, att))
+    xs = tuple(shard(x + a, "batch", seq_ax, None) for x, a in zip(xs, att))
     ys = _pglu_mlp(
         p["mlp"],
         prmsnorm(p["ln2"], xs, ids["ln2"], probe, layer=layer,
                  eps=cfg.norm_eps),
         ids["mlp"], probe, layer)
-    return tuple(x + y for x, y in zip(xs, ys))
+    return tuple(shard(x + y, "batch", seq_ax, None) for x, y in zip(xs, ys))
 
 
 def model_forward_perturbed(params, cfg: ArchConfig, batch, probe):
@@ -534,6 +620,8 @@ def model_forward_perturbed(params, cfg: ArchConfig, batch, probe):
             xs = pembed(emb["tok"], tokens, eids["tok"], probe)
         if cfg.n_codebooks:
             xs = tuple(x.sum(1) for x in xs)
+    xs = tuple(shard(x, "batch", "sp" if cfg.seq_parallel else None, None)
+               for x in xs)
     b, s, _ = xs[0].shape
     positions = _positions(cfg, batch, s, b, xs[0].device)
     for layer in range(cfg.n_layers):
@@ -544,6 +632,7 @@ def model_forward_perturbed(params, cfg: ArchConfig, batch, probe):
         logits = tuple(x @ t.T for x, t in zip(xs, tables))
     else:
         logits = pdense(emb["head"], xs, eids["head"], probe)
+    logits = tuple(shard(lg, "batch", None, "model") for lg in logits)
     if cfg.n_codebooks:
         logits = tuple(lg.reshape(b, s, cfg.n_codebooks, cfg.vocab)
                        for lg in logits)
@@ -634,7 +723,15 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
 def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
     """Run the prompt (``tokens``, or stub-frontend ``embeds``); returns
     (full-seq logits, ready-to-decode cache) on the logits' device.  An
-    ssm model's cache is its state alone, whatever ``max_len``."""
+    ssm model's cache is its state alone, whatever ``max_len``.  Under a
+    mesh the K/V cache is formed whole and placed (None, "batch",
+    "kvseq") over the mesh."""
+    check_mesh_family(cfg)
+    with mesh_ops():
+        return _model_prefill(params, cfg, batch, max_len)
+
+
+def _model_prefill(params, cfg: ArchConfig, batch, max_len: int):
     logits, states = model_forward(params, cfg, batch, return_state=True)
     if "tokens" in batch:
         b, s = batch["tokens"].shape[0], batch["tokens"].shape[-1]
@@ -645,6 +742,14 @@ def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
         return logits, {"state": states, "length": length}
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    if active_mesh() is not None:
+        # the dense family on a mesh: each K/V whole, placed (None,
+        # "batch", "kvseq"); its padding made shard by shard
+        return logits, {
+            **{key: shard(_pad_seq(state.to(cfg.torch_dtype), max_len),
+                          None, "batch", "kvseq")
+               for key, state in zip(_cache_keys(cfg), states)},
+            "length": length}
     cache = init_cache(cfg, b, max_len, device=logits.device)
     if cfg.family == "hybrid":
         cache["state"] = states["mamba"]
@@ -653,6 +758,19 @@ def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
         cache[key][:, :, :s] = state.to(cache[key].dtype)
     cache["length"] = length
     return logits, cache
+
+
+def _pad_seq(state, max_len: int):
+    """A DTensor [L, B, S, ...] zero-padded along S to ``max_len``, the
+    zeros made on each rank's shard only."""
+    n_pad = max_len - state.shape[2]
+    if not n_pad:
+        return state
+    from torch.distributed.tensor import zeros
+    shape = tuple(state.shape[:2]) + (n_pad,) + tuple(state.shape[3:])
+    pad = zeros(shape, dtype=state.dtype, device_mesh=state.device_mesh,
+                placements=state.placements)
+    return torch.cat([state, pad], dim=2)
 
 
 def _write_state(stacked, layer: int, new) -> None:
@@ -693,6 +811,12 @@ def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
     stub-frontend ``embeds`` [B, 1, d].  Returns (logits [B, V] ([B, nq,
     V] with codebooks), cache): the cache is written in place (the
     caller's dict keeps its old ``length``; use the returned one)."""
+    check_mesh_family(cfg)
+    with mesh_ops():
+        return _model_decode(params, cfg, tokens, cache, embeds)
+
+
+def _model_decode(params, cfg: ArchConfig, tokens, cache, embeds):
     if embeds is not None:
         x1 = embeds
     elif cfg.n_codebooks:

@@ -20,6 +20,12 @@ keyed on the manifest's dtype, so neither side needs ``ml_dtypes``.
 (The reference itself cannot load these files: numpy has no cast from
 ``V2`` to bfloat16; ROADMAP queue C.)
 
+Checkpoints carry no topology.  A DTensor leaf (params placed on a
+device mesh) is saved as its full tensor, in the same bytes as an
+unsharded save; in a multi-rank world every rank gathers, rank 0 writes,
+and the ranks meet at a barrier.  ``restore(shardings=...)`` places each
+leaf on its target placements — any mesh, or none (elastic restore).
+
 Host scalars in the tree (the port's ``MGDState.step``, an int; the
 analog state's ``primed``, a bool) are written as the reference's 0-d
 int32 / bool leaves and come back as host values.
@@ -34,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.utils import tree_flatten, tree_unflatten
+from repro_torch.core.utils import is_dtensor, tree_flatten, tree_unflatten
 
 
 class CheckpointMismatch(AssertionError):
@@ -65,6 +71,8 @@ def _to_numpy(leaf):
         return np.asarray(leaf, np.bool_), "bool"
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32), "int32"
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()       # the whole tensor
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -88,14 +96,21 @@ def save(ckpt_dir: str, step: int, params, extra: Optional[dict] = None,
          keep: int = 3):
     """Atomically save ``params`` (+ JSON-serializable ``extra``) at
     ``step``; returns the checkpoint's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp-{step}")
     final = os.path.join(ckpt_dir, f"step_{step:012d}")
+    leaves, _ = tree_flatten(params)
+    distributed = any(is_dtensor(x) for x in leaves) \
+        and torch.distributed.is_initialized()
+    if distributed and torch.distributed.get_rank() != 0:
+        for leaf in leaves:
+            _to_numpy(leaf)             # the gathers are collective
+        torch.distributed.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    leaves, _ = tree_flatten(params)
     manifest = {
         "step": int(step),
         "treedef": _describe(params),
@@ -114,6 +129,8 @@ def save(ckpt_dir: str, step: int, params, extra: Optional[dict] = None,
         shutil.rmtree(final)
     os.rename(tmp, final)
     _retain(ckpt_dir, keep)
+    if distributed:
+        torch.distributed.barrier()
     return final
 
 
@@ -155,14 +172,16 @@ def restore(ckpt_dir: str, params_like, step: Optional[int] = None,
     """Load a checkpoint into the structure of ``params_like``.
 
     Returns ``(params, extra, step)``; each leaf takes the dtype and
-    device of ``params_like``'s leaf.  A leaf count or shape that does
-    not match raises ``CheckpointMismatch`` (the training loop falls back
-    through the older layouts on it).
+    device of ``params_like``'s leaf.  With ``shardings`` (a tree of
+    ``distributed.sharding.NamedSharding``, e.g.
+    ``launch.specs.param_shardings(cfg, mesh)``) each leaf is placed on
+    its mesh instead — the elastic-resharding path: the checkpoint
+    carries no topology, so any compatible mesh works.  ``mesh`` is
+    taken for the reference's signature; the shardings name the mesh.
+    A leaf count or shape that does not match raises
+    ``CheckpointMismatch`` (the training loop falls back through the
+    older layouts on it).
     """
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (elastic resharding) is not ported to "
-            "repro_torch yet (ROADMAP A15)")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -177,11 +196,18 @@ def restore(ckpt_dir: str, params_like, step: Optional[int] = None,
             f"checkpoint has {manifest['n_leaves']} leaves, "
             f"model expects {len(ref_leaves)}")
     loaded = []
-    for i, ref in enumerate(ref_leaves):
+    shard_leaves = (tree_flatten(shardings)[0] if shardings is not None
+                    else [None] * len(ref_leaves))
+    for i, (ref, sharding) in enumerate(zip(ref_leaves, shard_leaves)):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         ref_shape = () if isinstance(ref, (bool, int)) else tuple(ref.shape)
         if tuple(arr.shape) != ref_shape:
             raise CheckpointMismatch(
                 f"leaf {i}: checkpoint shape {arr.shape}, model {ref_shape}")
-        loaded.append(_to_leaf(arr, manifest["leaves"][i]["dtype"], ref))
+        leaf = _to_leaf(arr, manifest["leaves"][i]["dtype"], ref)
+        if sharding is not None:
+            from repro_torch.distributed.sharding import place
+            leaf = place(leaf.to(sharding.mesh.device_type), sharding.spec,
+                         sharding.mesh)
+        loaded.append(leaf)
     return tree_unflatten(treedef, loaded), manifest["extra"], step

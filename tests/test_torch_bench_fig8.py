@@ -1,5 +1,5 @@
 """The ``fig8_noise`` twin against the reference's bench, the six figure
-twins' sources, and the runner over fourteen twins, on the CPU.
+twins' sources, and the runner over the fifteen twins, on the CPU.
 
 fig8 is cut alike in both packages, by monkeypatching each module's own
 names: ``N_SEEDS`` = 1, ``train_until`` (fig8's and ``common``'s, which
@@ -13,7 +13,7 @@ plant-loss threshold is held along the line to a solution.  ``run()`` of
 each yields the same 11 rows in order, ``detail`` and values included,
 and the names of the committed baseline; every run is held against the
 reference's (``hold_runs``: config, budget, plant meta, final params).
-The runner lists fourteen twins in the reference's order and runs
+The runner lists fifteen twins in the reference's order and runs
 ``--only fig8 --device cpu`` (cut the same way) into a record.
 """
 import json
@@ -103,10 +103,12 @@ def test_figure_twin_sources_stand_alone(twin):
 
 
 def test_runner_lists_fourteen_twins_in_the_reference_order(capsys):
+    """Named when roofline_report waited for the dry run; the runner now
+    lists all fifteen of the reference's benches, in its order."""
     assert trun.main(["--list"]) == 0
     names = capsys.readouterr().out.split()
-    assert len(names) == 14
-    assert names == [b for b in jrun.BENCHES if b != "roofline_report"]
+    assert len(names) == 15
+    assert names == list(jrun.BENCHES)
 
 
 def test_runner_runs_fig8_on_the_cpu_into_a_record(monkeypatch, tmp_path,

@@ -207,7 +207,7 @@ def test_farm_variance_from_reference_init_lands_on_reference(monkeypatch):
 def test_runner_list_and_unknown_only(capsys):
     assert trun.main(["--list"]) == 0
     listed = capsys.readouterr().out.split()
-    assert listed == trun.BENCHES and len(listed) == 14
+    assert listed == trun.BENCHES and len(listed) == 15
     assert trun.main(["--only", "no_such_bench"]) == 2
 
 

@@ -249,5 +249,22 @@ def test_check_chip_shardable_raises_as_reference(batch, n_chips):
 
 
 def test_shard_batch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A15"):
-        tpipeline.shard_batch({"x": torch.zeros(4)}, mesh=None)
+    """Named when shard_batch raised for ROADMAP A15; it now places a
+    batch on a DeviceMesh, batch dim → ("pod", "data") as the
+    reference's: here on a fake (2, 2) world, each leaf a DTensor
+    sharded on its leading dim over "data", its full tensor the batch."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed.world import close_world, fake_world
+    fake_world(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        batch = {"x": torch.arange(8.0).reshape(4, 2),
+                 "y": torch.arange(3.0)}
+        got = tpipeline.shard_batch(batch, mesh)
+        assert tuple(got["x"].placements) == (Shard(0), Replicate())
+        assert tuple(got["y"].placements) == (Replicate(), Replicate())
+        assert torch.equal(got["x"].to_local(), batch["x"][:2])
+    finally:
+        close_world()

@@ -1,0 +1,269 @@
+"""The port's distribution on real multi-rank worlds: gloo processes on
+the CPU, each rank a process (``tests/torch_dist_worker.py``), meeting in
+a ``FileStore`` under ``tmp_path`` (no network port).  Each world runs
+once per module; the reference's multi-device runs come from one JAX
+subprocess with virtual CPU devices, started beside it.
+
+Tolerances:
+
+* bitwise: signs on shards (every ptype, ``generate``,
+  ``generate_signs_only``, ``perturbed_tree`` on the qwen3 smoke tree
+  placed by ``param_shardings`` on a (2, 4) mesh); probe pods as ranks
+  against ``LocalMesh`` (fused and unfused, pod 4 and pod 2 × data 2);
+  elastic restore ((2, 4) → (4, 2) and → no mesh, and the files byte
+  for byte an unsharded save's); the sharded update given the same C̃;
+* the sharded MGD step (the reference test's smoke model, d_model 64,
+  heads 4/4, d_head 16, vocab 128, batch 4 × 32, Δθ = 1e-2, η = 0.1):
+  C̃ from the same state within 1e-5 of the cost, and the first 4 steps
+  within the transformer tests' 1e-2 (C̃) / 2e-2 (params) of the
+  unsharded run; 30 steps finite.  Row-sharded weights' partial sums
+  round apart, and this configuration diverges (the cost goes 5.5 → 20
+  in one step at homodyne gain η/Δθ = 10), so rounding differences grow
+  ~10× a step: later steps are held finite only;
+* the dense family's smoke models (every dense arch id, f32) on the
+  mesh: loss within 1e-5 relative, prefill logits and two decode steps
+  within 1e-5 of the unsharded model;
+* pods as ranks against the reference's 4-device runs: C̃ 1e-6 and
+  params 2e-4, the MLP's cross-framework tolerances (as
+  ``tests/test_torch_probe_parallel.py``); pod 0's cost 1e-5;
+* pipeline: within 1e-5 of the stages run one after another.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.models.simple import mlp_init as jmlp_init
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
+CT_ATOL, PARAM_ATOL, COST_ATOL = 1e-6, 2e-4, 1e-5
+CT_RUN_ATOL, PARAM_RUN_ATOL, GATED_STEPS = 1e-2, 2e-2, 4
+
+REFERENCE = r'''
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+import repro
+from repro.core import mse
+from repro.models.simple import make_mlp_probe_fn, mlp_apply, mlp_init
+
+inp = np.load(sys.argv[1])
+p0 = [{"b": jnp.asarray(inp["b0"]), "w": jnp.asarray(inp["w0"])},
+      {"b": jnp.asarray(inp["b1"]), "w": jnp.asarray(inp["w1"])}]
+batch = {"x": jnp.asarray(inp["x"]), "y": jnp.asarray(inp["y"])}
+out = {}
+
+
+def loss(p, b):
+    return mse(mlp_apply(p, b["x"]), b["y"])
+
+
+for name, shape, axes, data in (("pod4", (4,), ("pod",), None),
+                                ("pod2data2", (2, 2), ("pod", "data"),
+                                 "data")):
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape), axes)
+    for fused in (False, True):
+        cfg = repro.DriverConfig(dtheta=1e-2, eta=0.5, mode="central",
+                                 seed=3, fused=fused)
+        kw = dict(probe_fn=make_mlp_probe_fn()) if fused else {}
+        drv = repro.driver("probe_parallel", cfg, loss, mesh=mesh,
+                           data_axis=data, **kw)
+        p, s = p0, drv.init(p0)
+        cts, costs, ps = [], [], []
+        for _ in range(36):
+            p, s, aux = drv.step(p, s, batch)
+            cts.append(float(aux["c_tilde"]))
+            costs.append(float(aux["cost"]))
+            ps.append(np.concatenate([np.asarray(x).ravel()
+                                      for x in jax.tree_util.tree_leaves(p)]))
+        key = f"{name}/{fused}"
+        out[key + "/c_tilde"] = np.array(cts, np.float32)
+        out[key + "/cost"] = np.array(costs, np.float32)
+        out[key + "/params"] = np.stack(ps)
+np.savez(sys.argv[2], **out)
+'''
+
+
+def _start_world(scenario, world, d):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    return [subprocess.Popen(
+        [sys.executable, WORKER, scenario, str(r), str(world), str(d)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def _finish(procs, d, timeout=600):
+    errs = []
+    for r, p in enumerate(procs):
+        _, err = p.communicate(timeout=timeout)
+        if p.returncode:
+            errs.append(f"rank {r} rc {p.returncode}:\n{err[-3000:]}")
+    assert not errs, "\n".join(errs)
+    return torch.load(os.path.join(d, "out.pt"), weights_only=False)
+
+
+@pytest.fixture(scope="module")
+def world8(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh8")
+    return _finish(_start_world("mesh8", 8, d), d), d
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh4")
+    p = jmlp_init(jax.random.PRNGKey(0), (2, 2, 1))
+    x = np.array([[0., 0.], [1., 0.], [0., 1.], [1., 1.]], np.float32)
+    y = np.array([[0.], [1.], [1.], [0.]], np.float32)
+    inputs = dict(
+        w0=np.asarray(p[0]["w"]), b0=np.asarray(p[0]["b"]),
+        w1=np.asarray(p[1]["w"]), b1=np.asarray(p[1]["b"]),
+        x=x.reshape(4, 1, 2), y=y.reshape(4, 1, 1),
+        # the reference pipeline test's inputs
+        ws=np.asarray(jax.random.normal(jax.random.PRNGKey(0), (4, 8, 8))
+                      * 0.3),
+        px=np.asarray(jax.random.normal(jax.random.PRNGKey(1), (16, 8))))
+    np.savez(d / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    ref = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(REFERENCE),
+         str(d / "inputs.npz"), str(d / "ref.npz")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = _finish(_start_world("mesh4", 4, d), d)
+    _, err = ref.communicate(timeout=600)
+    assert ref.returncode == 0, err[-3000:]
+    return out, dict(np.load(d / "ref.npz")), inputs
+
+
+# --- signs on shards ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("what", [
+    "generate/rademacher", "generate/walsh", "generate/sequential",
+    "generate/sinusoidal", "signs_only", "perturbed_tree/1.0",
+    "perturbed_tree/-1.0"])
+def test_signs_on_shards_are_the_unsharded_signs(world8, what):
+    out, _ = world8
+    assert out["signs_n_sharded"] > 0
+    assert out["signs"][what]
+
+
+# --- the dense family on the mesh --------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mistral-nemo-12b",
+                                  "granite-34b", "qwen2-72b", "qwen2-vl-2b",
+                                  "musicgen-medium"])
+def test_dense_family_runs_sharded(world8, arch):
+    rec = world8[0]["dense"][arch]
+    assert abs(rec["loss"] - rec["loss_ref"]) <= 1e-5 * abs(rec["loss_ref"])
+    assert rec["prefill"] <= 1e-5
+    if arch != "qwen2-vl-2b":          # embeds-only: no token decode
+        assert rec["decode"] <= 1e-5
+
+
+# --- the sharded MGD step -----------------------------------------------------
+
+
+def test_sharded_step_c_tilde_from_the_same_state(world8):
+    st = world8[0]["step"]
+    assert st["n_sharded"] > 0
+    ref, got = st["ref"], st["got"]
+    assert abs(got["c_tilde"][0] - ref["c_tilde"][0]) \
+        <= 1e-5 * abs(ref["cost"][0])
+    assert abs(got["cost"][0] - ref["cost"][0]) <= 1e-5 * abs(ref["cost"][0])
+
+
+def test_sharded_update_given_the_same_c_tilde_is_bitwise(world8):
+    assert world8[0]["step"]["update_bitwise"]
+
+
+def test_sharded_step_tracks_unsharded_run(world8):
+    st = world8[0]["step"]
+    ref, got = st["ref"], st["got"]
+    assert len(got["cost"]) == 30
+    assert all(np.isfinite(got["cost"])) and all(np.isfinite(got["c_tilde"]))
+    assert all(bool(torch.isfinite(p).all()) for p in got["params"])
+    for i in range(GATED_STEPS):
+        assert abs(got["c_tilde"][i] - ref["c_tilde"][i]) <= CT_RUN_ATOL, i
+        assert float((got["params"][i] - ref["params"][i]).abs().max()) \
+            <= PARAM_RUN_ATOL, i
+
+
+# --- elastic restore ----------------------------------------------------------
+
+
+def test_elastic_restore_across_meshes(world8):
+    el = world8[0]["elastic"]
+    assert el["onto_4x2"] and el["onto_none"] and el["plain_leaves"]
+    assert el["step"] == 3
+    assert el["placements_4x2"][0] == "(Shard(dim=1), Shard(dim=0))"
+
+
+def test_sharded_save_writes_an_unsharded_saves_bytes(world8):
+    d = world8[1]
+    a, b = d / "sharded" / f"step_{3:012d}", d / "plain" / f"step_{3:012d}"
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b)) and "manifest.json" in names
+    for n in names:
+        assert (a / n).read_bytes() == (b / n).read_bytes(), n
+
+
+# --- probe pods as ranks --------------------------------------------------------
+
+
+CASES = ["pod4/False", "pod4/True", "pod2data2/False", "pod2data2/True"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pods_as_ranks_bitwise_local_mesh(world4, case):
+    ranks, local = world4[0][case]
+    assert ranks["c_tilde"] == local["c_tilde"]
+    assert ranks["cost"] == local["cost"]
+    assert all(torch.equal(a, b) for a, b in zip(ranks["params"],
+                                                 local["params"]))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pods_as_ranks_track_the_references_mesh(world4, case):
+    ranks = world4[0][case][0]
+    ref = world4[1]
+    np.testing.assert_allclose(np.array(ranks["c_tilde"], np.float32),
+                               ref[case + "/c_tilde"], rtol=0, atol=CT_ATOL)
+    np.testing.assert_allclose(np.array(ranks["cost"], np.float32),
+                               ref[case + "/cost"], rtol=0, atol=COST_ATOL)
+    np.testing.assert_allclose(torch.stack(ranks["params"]).numpy(),
+                               ref[case + "/params"], rtol=0,
+                               atol=PARAM_ATOL)
+
+
+def test_pods_as_ranks_take_param_specs_on_the_unfused_path(world4):
+    """(pod 2, model 2), XOR, unfused, ``param_specs=[("w$", (None,
+    "model"))]``: the first layer's W lives as column shards on the
+    "model" ranks and the loss runs on DTensors; C̃ and the params track
+    LocalMesh(pod=2)'s within the MLP's 1e-6 / 2e-4."""
+    ranks, local = world4[0]["pod2model2_param_specs"]
+    assert ranks["sharded_leaves"] >= 1 and local["sharded_leaves"] == 0
+    np.testing.assert_allclose(ranks["c_tilde"], local["c_tilde"], rtol=0,
+                               atol=CT_ATOL)
+    np.testing.assert_allclose(torch.stack(ranks["params"]).numpy(),
+                               torch.stack(local["params"]).numpy(), rtol=0,
+                               atol=PARAM_ATOL)
+
+
+def test_pipeline_forward_exact(world4):
+    out, _, inputs = world4
+    ref = torch.tensor(inputs["px"])
+    for i in range(4):
+        ref = torch.tanh(ref @ torch.tensor(inputs["ws"][i]))
+    assert tuple(out["pipeline"].shape) == (16, 8)
+    assert float((out["pipeline"] - ref).abs().max()) <= 1e-5

@@ -147,8 +147,9 @@ def test_cuda_impl_on_cpu_params_raises():
 def test_unported_algorithms_name_their_roadmap_item(algorithm, item):
     """The probe-parallel algorithms, unported until ROADMAP ``item``
     (A11, with A12's host boundary), are registered and build on the CPU;
-    what of them is still unported — parameter sharding over a mesh —
-    raises naming its own item (A15)."""
+    parameter sharding (``param_specs=``, A15) builds on the unfused
+    path, and what is still unported — the fused probe on a
+    parameter-sharded mesh — raises naming its own item (A15b)."""
     from repro_torch.hardware import simulated_chip_farm
 
     assert algorithm in rt.ALGORITHMS
@@ -156,9 +157,13 @@ def test_unported_algorithms_name_their_roadmap_item(algorithm, item):
     if algorithm == "probe_parallel":
         drv = rt.driver(algorithm, cfg, _loss, mesh=rt.LocalMesh(pod=2),
                         device="cpu")
-        with pytest.raises(NotImplementedError, match="A15"):
-            rt.driver(algorithm, cfg, _loss, mesh=rt.LocalMesh(pod=2),
-                      param_specs=[("w", ["model"])], device="cpu")
+        rt.driver(algorithm, cfg, _loss, mesh=rt.LocalMesh(pod=2),
+                  param_specs=[("w", ["model"])], device="cpu")
+        with pytest.raises(NotImplementedError, match="A15b"):
+            rt.driver(algorithm, cfg.replace(fused=True), _loss,
+                      mesh=rt.LocalMesh(pod=2), device="cpu",
+                      probe_fn=rt.make_mlp_probe_fn(),
+                      param_specs=[("w", ["model"])])
     else:
         with simulated_chip_farm(2, (2, 2, 1), backend="serial") as farm:
             drv = rt.driver(algorithm, cfg, plant=farm, device="cpu")
@@ -170,8 +175,11 @@ def test_unported_knobs_raise(tmp_path):
 
     params = rt.mlp_init(0, (2, 2, 1), device="cpu")
     ckpt.save(str(tmp_path), 1, params)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ckpt.restore(str(tmp_path), params, mesh=object())
+    # restoring with a mesh (A15, once unported) now works: the
+    # shardings name the placements, the mesh alone changes nothing
+    got, _, step = ckpt.restore(str(tmp_path), params, mesh=object())
+    assert step == 1 and all(torch.equal(a, b) for a, b in zip(
+        rt.core.utils.tree_leaves(got), rt.core.utils.tree_leaves(params)))
     with pytest.raises(ValueError, match="unknown algorithm"):
         rt.driver("nope", rt.DriverConfig(), _loss, device="cpu")
     with pytest.raises(ValueError, match="analog-section"):

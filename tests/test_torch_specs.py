@@ -4,7 +4,8 @@ port had lacked.
 * ``launch/specs.py::abstract_params`` gives, for all ten arch ids, full
   and smoke, the reference's leaf paths, shapes and dtypes, every leaf on
   the ``meta`` device; the input specs match the reference's
-  ``ShapeDtypeStruct``s; the mesh-bound names raise, naming A15.
+  ``ShapeDtypeStruct``s; the mesh-bound names (A15) give the
+  reference's rules and specs.
 * ``model_init`` on the CPU draws what it drew before the meta device
   was allowed (digests of four smoke configs' params, seed 0).
 * ``make_mgd_epoch`` equals ``api.make_epoch`` over the same step
@@ -104,16 +105,38 @@ def test_input_specs_match_reference(shape):
 
 
 def test_mesh_bound_names_raise():
+    """Named when the mesh-bound names raised (ROADMAP A15); they now
+    give the reference's rule table and specs: ``param_shardings``,
+    ``batch_shardings`` and ``cache_shardings`` on a (2, 16, 16) mesh
+    stand-in, ``decode_input_specs(mesh=...)`` the shapes it gives
+    without one."""
+    from repro.distributed import sharding as jshd
+
+    class FakeMesh:
+        axis_names = ("pod", "data", "model")
+        shape = {"pod": 2, "data": 16, "model": 16}
+
+    mesh = FakeMesh()
     cfg = tconfigs.get_smoke_config("qwen3-14b")
-    calls = [lambda: tspecs.param_rules(cfg),
-             lambda: tspecs.param_shardings(cfg, None),
-             lambda: tspecs.batch_shardings({}, None),
-             lambda: tspecs.cache_shardings(cfg, {}, None),
-             lambda: tspecs.decode_input_specs(
-                 cfg, tconfigs.SHAPES["decode_32k"], mesh=object())]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A15"):
-            call()
+    jcfg = jconfigs.get_smoke_config("qwen3-14b")
+    assert tspecs.param_rules(cfg) == jspecs.param_rules(jcfg)
+    got = [tuple(s.spec) for s in tree_leaves(
+        tspecs.param_shardings(cfg, mesh))]
+    want = [tuple(s) for s in jax.tree_util.tree_leaves(
+        jshd.param_specs(jspecs.abstract_params(jcfg),
+                         jspecs.param_rules(jcfg), mesh),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))]
+    assert got == want and any(any(e is not None for e in s) for s in got)
+    shape = tconfigs.SHAPES["decode_32k"]
+    tok, cache = tspecs.decode_input_specs(cfg, shape, mesh=mesh)
+    tok0, cache0 = tspecs.decode_input_specs(cfg, shape)
+    assert _torch_leaves(cache) == _torch_leaves(cache0)
+    b = tspecs.batch_shardings(tok, mesh)
+    assert tuple(b["tokens"].spec) == (("pod", "data"),)
+    c = tspecs.cache_shardings(cfg, cache, mesh)
+    assert tuple(c["k"].spec) == (None, ("pod", "data"), "model", None,
+                                  None)
+    assert tuple(c["length"].spec) == ()
 
 
 # digests of model_init(smoke config, 0, device="cpu"), every leaf's f32
