@@ -283,7 +283,25 @@ Phases, each fatal on failure (nothing is caught):
    bitwise; and
    ``quantize_int8`` on a [5120, 17408] f32 tensor, card against CPU,
    bitwise.  Phase 16's cut calls run 100 XOR steps (16b) and 50 timed
-   steps a kind (16a) to make room for it.
+   steps a kind (16a) to make room for it.  17c, in 17b's process and
+   on its mesh: 17c.1 each kernel on the four blocks a (2, 2) mesh gives
+   a leaf (the LM's gate/up [5120, 17408] in bf16 on the tensor-core
+   route, [1024, 768] f32 on the SIMT one), the block's offset in its
+   seed and the leaf's N as ``n_cols``: B1/B2 on a column block bitwise
+   the whole leaf's columns, the row blocks' products summing to the
+   whole within 1e-4, B3/B4 on every block bitwise the whole update's
+   block, each block launch against its plain version with the same
+   ``n_cols``; 17c.2 3 fused central and 3 forward steps of 17b's model
+   on DTensor params (B1/B2/B3 on the local shards), bitwise the
+   unsharded fused steps, with the same launch counts (into the kernels
+   line); 17c.3 llama4-scout (1 layer), deepseek-v3 (1), rwkv6 (2) and
+   zamba2 (3) at full width on the mesh: forward, prefill and a decode
+   token bitwise the unsharded model's, then one MGD step on the mesh
+   (unfused, C̃ and params bitwise the unsharded step's; DeepSeek-V3's
+   fused, whose probes materialize one θ ± θ̃ at a time: its unfused
+   step's three trees would not fit), its peak memory printed.  Each
+   family's unsharded step runs first and its C̃ and params are kept on
+   the host, so the mesh step need not share the card with them.
 
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
@@ -4195,6 +4213,21 @@ DIST_PP_MLP_STEPS = 8
 DIST_PP_LM_STEPS = 3
 QUANT_SHAPE = (5120, 17408)
 PHASE17_TIMEOUT_S = 600
+# 17c: each kernel on the blocks a (2, 2) mesh would give a leaf: the
+# LM's gate/up leaf in bf16 (the tensor-core route) and a SIMT f32 one
+BLOCK_CASES = [((LM_TOKENS, 5120, 17408), "bfloat16"),
+               ((256, 1024, 768), "float32")]
+BLOCK_WINDOW = 4            # J of the update kernels' blocks
+SHARDED_FUSED_STEPS = 3     # 17c.2: fused central and forward, each
+# 17c.3: the families on the one-rank mesh, at full width and at most
+# phases 13-14's depth (zamba2: one group, 2 Mamba-2 blocks + the shared
+# block); their MGD step is the unfused one, but DeepSeek-V3's: its three
+# trees (params, θ̃, θ ± θ̃) are 78 GB at one layer (phase 13d), so it
+# takes the fused step, which probes by materializing one θ ± θ̃ at a
+# time and updates through the window update on its shards
+FAMILY_MESH = {"llama4-scout-17b-a16e": 1, "deepseek-v3-671b": 1,
+               "rwkv6-7b": 2, "zamba2-7b": 3}
+FAMILY_MESH_FUSED = ("deepseek-v3-671b",)
 
 
 def dryrun_cell(torch):
@@ -4404,7 +4437,28 @@ def one_rank_mesh(torch, rt, kernels, card, dev, backend="nccl",
             del got, local
         out["17b2"] = dict(pods, seconds=time.perf_counter() - t0)
         print(json.dumps({"phase17b2": out["17b2"]}), flush=True)
+        # 17c: the kernels' n_cols on blocks of a leaf, the fused step on
+        # DTensor params, the other families on the mesh
+        t_c = time.perf_counter()
+        blocks = kernel_blocks(torch, ops, rt.core.perturbations, dev)
+        t1 = time.perf_counter()
+        print(f"phase 17c.1 done in {t1 - t_c:.1f} s", flush=True)
+        fused, fused_counts = sharded_fused(torch, rt, kernels, dev, mesh,
+                                            cfg, p0, batch)
+        print(json.dumps({"phase17c2": fused}), flush=True)
+        for k, v in fused_counts.items():
+            totals[k] += v
         del p0, lm, mlp
+        t2 = time.perf_counter()
+        fams = families_on_mesh(torch, rt, dev, mesh)
+        out["17c"] = dict(blocks=blocks, fused=fused, families=fams,
+                          seconds={"17c1": t1 - t_c, "17c2": t2 - t1,
+                                   "17c3": time.perf_counter() - t2,
+                                   "17c": time.perf_counter() - t_c})
+        print(json.dumps({"phase17c": out["17c"]}), flush=True)
+        print("phase 17c: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in out["17c"]["seconds"].items()),
+            flush=True)
         # 17b.4: int8 compression, card against CPU
         t0 = time.perf_counter()
         on_card = comp.quantize_int8(g.to(dev), r.to(dev), key)
@@ -4423,6 +4477,238 @@ def one_rank_mesh(torch, rt, kernels, card, dev, backend="nccl",
         shutil.rmtree(tmp, ignore_errors=True)
     out["card"] = card
     return out, totals
+
+
+def kernel_blocks(torch, ops, pert, dev):
+    """Phase 17c.1: each kernel on the four blocks of a leaf a (2, 2)
+    mesh gives (K and N halved), the block's offset folded into its seed
+    and the leaf's N as ``n_cols``: B1/B2 on the column blocks (x whole)
+    bitwise the same columns of the whole leaf's launch, the row blocks'
+    products (x's matching columns) summing to the whole within 1e-4,
+    B3/B4 on each block bitwise the whole update's block, and each block
+    launch against its plain version with the same ``n_cols``."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    f32 = torch.float32
+    recs = {name: [] for name in SOURCES}
+    for (m, k, n), dname in BLOCK_CASES:
+        dt = getattr(torch, dname)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        xm = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        w = (torch.randn((k, n), generator=gen, device=dev) * 0.1).to(dt)
+        lseed = pert.leaf_seed(3, 1, 4)
+        kw = dict(dtheta=1e-2, out_dtype=f32)
+        whole = ops.perturbed_matmul(x, w, lseed, sign=-1.0, **kw)
+        whole_p = ops.perturbed_matmul_pair(x, xm, w, lseed, **kw)
+        hk, hn = k // 2, n // 2
+        col_eq, sum_err, plain_err, plain_err_p = True, 0.0, 0.0, 0.0
+        for c in range(2):
+            cs = slice(c * hn, (c + 1) * hn)
+            seed = pert.shifted_leaf_seed(lseed, c * hn)
+            wc = w[:, cs].contiguous()
+            y = ops.perturbed_matmul(x, wc, seed, sign=-1.0, n_cols=n, **kw)
+            yp, ym = ops.perturbed_matmul_pair(x, xm, wc, seed, n_cols=n,
+                                               **kw)
+            col_eq &= bool(torch.equal(y, whole[:, cs])
+                           and torch.equal(yp, whole_p[0][:, cs])
+                           and torch.equal(ym, whole_p[1][:, cs]))
+            parts, parts_p = [], []
+            for r in range(2):
+                rs = slice(r * hk, (r + 1) * hk)
+                seed = pert.shifted_leaf_seed(lseed, r * hk * n + c * hn)
+                xb, xmb = x[:, rs].contiguous(), xm[:, rs].contiguous()
+                wb = w[rs, cs].contiguous()
+                y = ops.perturbed_matmul(xb, wb, seed, sign=-1.0, n_cols=n,
+                                         **kw)
+                yp, ym = ops.perturbed_matmul_pair(xb, xmb, wb, seed,
+                                                   n_cols=n, **kw)
+                ref = ops.perturbed_matmul(xb, wb, seed, sign=-1.0, n_cols=n,
+                                           impl="ref", **kw)
+                rp, rm = ops.perturbed_matmul_pair(xb, xmb, wb, seed,
+                                                   n_cols=n, impl="ref", **kw)
+                plain_err = max(plain_err, rel_err(y, ref))
+                plain_err_p = max(plain_err_p, rel_err(yp, rp),
+                                  rel_err(ym, rm))
+                parts.append(y)
+                parts_p.append((yp, ym))
+            sum_err = max(sum_err, rel_err(parts[0] + parts[1], whole[:, cs]),
+                          rel_err(parts_p[0][0] + parts_p[1][0],
+                                  whole_p[0][:, cs]),
+                          rel_err(parts_p[0][1] + parts_p[1][1],
+                                  whole_p[1][:, cs]))
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        shape = [m, k, n]
+        if not col_eq:
+            fail(f"phase 17c.1 {shape} {dname}: a column block's product is "
+                 f"not bitwise the whole leaf's columns")
+        for what, e in (("row blocks' sum", sum_err), ("plain", plain_err),
+                        ("plain (pair)", plain_err_p)):
+            if not e <= TOL["float32"]:
+                fail(f"phase 17c.1 {shape} {dname}: {what} rel err {e} > "
+                     f"{TOL['float32']}")
+        for name, pe in (("perturbed_matmul", plain_err),
+                         ("perturbed_matmul_pair", plain_err_p)):
+            recs[name].append(dict(
+                shape=shape, dtype=dname, blocks="2x2", n_cols=n,
+                column_blocks_bitwise=True, row_blocks_sum_rel_err=sum_err,
+                plain_rel_err=pe, tol=TOL["float32"]))
+        del whole, whole_p, x, xm
+        seeds = [pert.leaf_seed(3, t, 4) for t in range(BLOCK_WINDOW)]
+        coefs = torch.randn((BLOCK_WINDOW,), generator=gen, device=dev)
+        upd = {"mgd_update_window": lambda w_, s_, **kw_: ops.mgd_update_window(
+                   w_, s_, coefs, alpha=-0.5, dtheta=1e-2, **kw_),
+               "mgd_update": lambda w_, s_, **kw_: ops.mgd_update(
+                   w_, s_, coefs, eta=1e-2, dtheta=1e-2, **kw_)}
+        for name, fn in upd.items():
+            whole = fn(w, seeds)
+            same = plain_same = True
+            for r in range(2):
+                for c in range(2):
+                    rs = slice(r * hk, (r + 1) * hk)
+                    cs = slice(c * hn, (c + 1) * hn)
+                    bs = [pert.shifted_leaf_seed(sd, r * hk * n + c * hn)
+                          for sd in seeds]
+                    wb = w[rs, cs].contiguous()
+                    got = fn(wb, bs, n_cols=n)
+                    same &= bool(torch.equal(got, whole[rs, cs]))
+                    plain_same &= bool(torch.equal(
+                        got, fn(wb, bs, n_cols=n, impl="ref")))
+            if not (same and plain_same):
+                fail(f"phase 17c.1 {name} {[k, n]} {dname}: blocks bitwise "
+                     f"the whole {same}, their plain versions {plain_same}")
+            recs[name].append(dict(shape=[k, n], dtype=dname, blocks="2x2",
+                                   n_cols=n, window=BLOCK_WINDOW,
+                                   whole_block_bitwise=True,
+                                   plain_bitwise=True))
+            del whole
+        del w
+    return recs
+
+
+def sharded_fused(torch, rt, kernels, dev, mesh, cfg, p0, batch):
+    """Phase 17c.2: the fused central and forward steps of ``cfg`` on
+    DTensor params on the one-rank ``mesh``, B1/B2/B3 on the local shards
+    (offset 0, ``n_cols`` = N): bitwise the unsharded fused steps from the
+    same state, with the same launch counts."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    runs, totals = {}, dict.fromkeys(SOURCES, 0)
+    for mode in ("central", "forward"):
+        mcfg = rt.MGDConfig(dtheta=1e-2, eta=1e-2, mode=mode, fused=True)
+        step = rt.build_mgd_step(lambda p, b: rt.model_loss(p, cfg, b), mcfg,
+                                 probe_fn=rt.make_transformer_probe_fn(cfg))
+
+        def run(p, b):
+            s, cts = rt.mgd_init(p, mcfg), []
+            kernels.reset_launch_counts()
+            for _ in range(SHARDED_FUSED_STEPS):
+                p, s, m = step(p, s, b)
+                cts.append(shd.full(m["c_tilde"]))
+            torch.cuda.synchronize() if dev.type == "cuda" else None
+            return p, cts, kernels.launch_counts()
+
+        p, cts, want = run(p0, batch)
+        with shd.use_mesh(mesh):
+            q = shd.device_put(p0, specs.param_shardings(cfg, mesh))
+            t1 = time.perf_counter()
+            q, gct, got = run(q, shard_batch(batch, mesh))
+            dt = time.perf_counter() - t1
+        same = all(torch.equal(a, b) for a, b in zip(gct, cts)) \
+            and _same_tree(torch, q, p)
+        if not same:
+            fail(f"phase 17c.2 {mode}: the fused step on DTensor params is "
+                 f"not bitwise the unsharded fused step")
+        if got != want or (dev.type == "cuda" and not all(
+                got[k] for k in ("perturbed_matmul_pair"
+                                 if mode == "central" else "perturbed_matmul",
+                                 "mgd_update_window"))):
+            fail(f"phase 17c.2 {mode}: launches {got} on the mesh, {want} "
+                 f"without it")
+        for k, v in got.items():
+            totals[k] += v
+        runs[mode] = dict(steps=SHARDED_FUSED_STEPS, bitwise=True,
+                          launches=got, s_per_step_mesh=dt
+                          / SHARDED_FUSED_STEPS,
+                          c_tilde=[float(c) for c in cts])
+        del p, q
+    return runs, totals
+
+
+def families_on_mesh(torch, rt, dev, mesh):
+    """Phase 17c.3: MoE, MLA and the recurrent families at full width on
+    the one-rank mesh: forward, prefill and one decode token bitwise the
+    unsharded model's, then one MGD step on the mesh, C̃ and params
+    bitwise the unsharded step's (run first, its results kept on the
+    host); peak memory."""
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    out = {}
+    for arch, n_layers in FAMILY_MESH.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats() if dev.type == "cuda" else None
+        cfg = rt.get_config(arch).replace(n_layers=n_layers)
+        params = rt.model_init(cfg, 0, device=dev)
+        batch = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)(0)
+        toks = {"tokens": batch["tokens"]}
+        s = toks["tokens"].shape[-1]
+        want = [rt.model_forward(params, cfg, batch)]
+        wl, wc = rt.model_prefill(params, cfg, toks, s + 1)
+        want += [wl, rt.model_decode(params, cfg, toks["tokens"][:, -1],
+                                     wc)[0]]
+        del wl, wc
+        fused = arch in FAMILY_MESH_FUSED
+        mcfg = rt.MGDConfig(dtheta=1e-2, eta=1e-2, mode="central",
+                            fused=fused)
+        step = rt.build_mgd_step(
+            lambda p, b: rt.model_loss(p, cfg, b), mcfg,
+            probe_fn=rt.make_transformer_probe_fn(cfg) if fused else None)
+        p, _, m = step(params, rt.mgd_init(params, mcfg), batch)
+        want_ct = m["c_tilde"].cpu()
+        want_p = [x.cpu() for x in tree_leaves(p)]
+        del p, m
+        with shd.use_mesh(mesh):
+            placed = shd.device_put(params, specs.param_shardings(cfg, mesh))
+            del params
+            sb = shard_batch(batch, mesh)
+            got = [rt.model_forward(placed, cfg, sb)]
+            gl, gc = rt.model_prefill(placed, cfg,
+                                      {"tokens": sb["tokens"]}, s + 1)
+            got += [gl, rt.model_decode(placed, cfg, toks["tokens"][:, -1],
+                                        gc)[0]]
+            del gl, gc
+        same = [bool(torch.equal(shd.full(g), w_)) for g, w_ in zip(got, want)]
+        del got, want
+        if not all(same):
+            fail(f"phase 17c.3 {arch}: forward, prefill, decode bitwise "
+                 f"{same} on the one-rank mesh")
+        t1 = time.perf_counter()
+        with shd.use_mesh(mesh):
+            q, _, m = step(placed, rt.mgd_init(placed, mcfg), sb)
+            ct = shd.full(m["c_tilde"])
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        step_s = time.perf_counter() - t1
+        if not bool(torch.isfinite(ct)):
+            fail(f"phase 17c.3 {arch}: the MGD step on the mesh gave C̃ {ct}")
+        del placed
+        step_bitwise = bool(torch.equal(ct.cpu(), want_ct)) and all(
+            torch.equal(shd.full(x).cpu(), y)
+            for x, y in zip(tree_leaves(q), want_p))
+        del q, want_p
+        if not step_bitwise:
+            fail(f"phase 17c.3 {arch}: the MGD step on the mesh is not "
+                 f"bitwise the unsharded step")
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if dev.type == "cuda" else None
+        out[arch] = dict(layers=n_layers, forward_prefill_decode_bitwise=True,
+                         mgd_step="fused" if fused else "unfused",
+                         c_tilde=float(ct), step_s=step_s,
+                         step_bitwise=step_bitwise, peak_mem_gb=peak,
+                         seconds=time.perf_counter() - t0)
+        print(json.dumps({"phase17c3": {arch: out[arch]}}), flush=True)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return out
 
 
 _CHILDREN = []
@@ -4479,7 +4765,8 @@ def finish_phase17(which, proc, files, t_start):
     lines, errors = log.read().splitlines(), err.read()
     log.close()
     err.close()
-    for line in lines[:-1]:
+    # the last line is the record; a failed process's is a report too
+    for line in lines[:-1] if proc.returncode == 0 else lines:
         print(line, flush=True)
     if proc.returncode != 0 or not lines:
         print(errors[-4000:], file=sys.stderr, flush=True)
@@ -4693,6 +4980,7 @@ def main(argv=None) -> int:
     # -- phase 17: distribution on torch.distributed -----------------------
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
+    torch.cuda.empty_cache()    # 17c.3's DeepSeek-V3 layer needs ~55 GB
     p17b = go_phase17(p17b)
     dist = {}
     dist["17b"], dist["17b_seconds"] = finish_phase17("b", *p17b)
@@ -4749,6 +5037,8 @@ def main(argv=None) -> int:
                 cluster1_ms=main_rec["cluster1_ms"],
                 split_bound_ms=main_rec["split_bound_ms"],
                 f32_out_rel_err=main_rec["f32_out_rel_err"])
+        # 17c.1: the kernel on the blocks of a leaf, n_cols = the leaf's N
+        entry["n_cols_blocks"] = dist["17b"]["17c"]["blocks"][name]
         entries.append(entry)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {total_s:.1f} s", flush=True)

@@ -4,9 +4,9 @@ and this repo's quantitative version of the paper's §5 broadcast
 argument.
 
 Headline number: MGD's gradient-path collective is ONE scalar per step;
-backprop's is an O(P) gradient all-reduce.  The rows compare, per dense
+backprop's is an O(P) gradient all-reduce.  The rows compare, per
 cell of ``python -m repro_torch.launch.dryrun`` (single-pod, untagged;
-cells skipped for ROADMAP A15b are left out), the H100 roofline terms
+the cells the reference skips are left out), the H100 roofline terms
 (``launch.roofline``) and the hypothetical backprop gradient all-reduce
 (2·P/chips bf16 bytes) against MGD's 4-byte scalar.  It reads files
 only: no card, no seed.

@@ -163,26 +163,56 @@ def _probe_seed(cfg: MGDConfig, probe: int) -> int:
     return pod_seed(cfg.seed, probe)
 
 
+def _update_blocks(leaf, seeds):
+    """(input, output, window seeds, signs' row stride) of each block the
+    window update takes for an ndim ≥ 2 leaf, and the updated leaf those
+    outputs make up.  A plain leaf is one block; a DTensor leaf's local
+    shard is its row runs (``perturbations.shard_runs``), each with its
+    first global index folded into the seeds and the leaf's last dim as
+    the stride, so no parameter is communicated."""
+    if not is_dtensor(leaf):
+        new = torch.empty_like(leaf)
+        return [(leaf, new, seeds, None)], new
+    from torch.distributed.tensor import DTensor
+    local = leaf.to_local()
+    new = torch.empty(local.shape, dtype=local.dtype, device=local.device)
+    local_shape, offset = pert.shard_layout(leaf)
+    blocks = []
+    if local.numel():
+        for idx, start in pert.shard_runs(tuple(leaf.shape), local_shape,
+                                          offset):
+            blocks.append((local[idx], new[idx],
+                           [pert.shifted_leaf_seed(s, start) for s in seeds],
+                           leaf.shape[-1]))
+    return blocks, DTensor.from_local(new, leaf.device_mesh, leaf.placements,
+                                      run_check=False, shape=leaf.shape,
+                                      stride=leaf.stride())
+
+
 def fused_leaf_updates(cfg: MGDConfig, params, seeds_of, coefs, alpha,
                        small_update):
     """ndim ≥ 2 leaves through one grouped window update — leaf ``lid``'s
     window seeds are ``seeds_of(lid)``, they reach the device in one copy,
     and on the card it is one launch — small leaves through
-    ``small_update(leaf, lid)``."""
+    ``small_update(leaf, lid)``.  DTensor leaves update their local shards
+    (``_update_blocks``)."""
     leaves, treedef = tree_flatten(params)
     metas = leaf_meta(params)
-    mats = [(lid, leaf) for (lid, _, _), leaf in zip(metas, leaves)
-            if leaf.dim() >= 2]
-    updated = []
-    if mats:
-        seeds = kops.seeds_tensor([seeds_of(lid) for lid, _ in mats],
-                                  leaves[0].device)
-        updated = kops.mgd_update_window_group(
-            [leaf for _, leaf in mats], seeds, coefs, alpha=alpha,
-            dtheta=cfg.dtheta, impl=cfg.kernel_impl)
-    updated = iter(updated)
-    out = [next(updated) if leaf.dim() >= 2 else small_update(leaf, lid)
-           for (lid, _, _), leaf in zip(metas, leaves)]
+    blocks, out = [], []
+    for (lid, _, _), leaf in zip(metas, leaves):
+        if leaf.dim() >= 2:
+            parts, new = _update_blocks(leaf, seeds_of(lid))
+            blocks += parts
+            out.append(new)
+        else:
+            out.append(small_update(leaf, lid))
+    if blocks:
+        seeds = kops.seeds_tensor([b[2] for b in blocks],
+                                  pert.local_device(leaves[0]))
+        kops.mgd_update_window_group(
+            [b[0] for b in blocks], seeds, coefs, alpha=alpha,
+            dtheta=cfg.dtheta, impl=cfg.kernel_impl,
+            n_cols=[b[3] for b in blocks], out=[b[1] for b in blocks])
     return tree_unflatten(treedef, out)
 
 
@@ -198,9 +228,8 @@ def fused_update_tau1(cfg: MGDConfig, params, n: int, c_tilde):
         # sign-LAST form of leaf + (−η)·(θ̃·s): the ±1 sign commutes
         # exactly through both roundings, so this equals the
         # materializing path bitwise and no FMA can re-round it
-        signs = pert.rademacher_leaf(
-            leaf.shape, torch.float32, lid, step=n, seed=seed,
-            dtheta=1.0, tau_p=cfg.tau_p, device=leaf.device)
+        signs = pert.leaf_theta(leaf, pert.leaf_seed(seed, n // cfg.tau_p,
+                                                     lid), 1.0, torch.float32)
         return (leaf.float() + signs * t).to(leaf.dtype)
 
     def seeds_of(lid):
@@ -365,9 +394,9 @@ def build_mgd_step(
         def small(leaf, lid):
             lf = leaf
             for jj, s in enumerate(steps):
-                theta = pert.rademacher_leaf(
-                    lf.shape, lf.dtype, lid, step=s, seed=seed,
-                    dtheta=cfg.dtheta, tau_p=cfg.tau_p, device=lf.device)
+                theta = pert.leaf_theta(
+                    lf, pert.leaf_seed(seed, s // cfg.tau_p, lid),
+                    cfg.dtheta)
                 lf = (lf.float() + coefs[jj] * theta.float()).to(lf.dtype)
             return lf
 
@@ -382,11 +411,6 @@ def build_mgd_step(
         return replay_c
 
     def step_fn_fused(params, state: MGDState, batch):
-        if any(is_dtensor(leaf) for leaf in tree_leaves(params)):
-            raise NotImplementedError(
-                "the fused step on a parameter-sharded mesh is ROADMAP "
-                "A15b (its kernels read whole leaves); run the unfused "
-                "step (fused=False) on DTensor params")
         n = state.step
         c_tilde, c0, cost_metric = probe_once_fused(params, state, batch)
         do_update = (n + 1) % cfg.tau_theta == 0

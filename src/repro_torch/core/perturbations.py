@@ -24,11 +24,15 @@ Signs on a shard.  A leaf may be a DTensor placed on a device mesh
 alone, each local element hashed at its *global* row-major index
 (``shard_index``, from the shard's offset): θ̃ of a sharded leaf is the
 unsharded θ̃ restricted to the shard, bit for bit, and its
-``full_tensor()`` the unsharded θ̃.
+``full_tensor()`` the unsharded θ̃.  The kernels take a shard as row runs
+(``shard_runs``): each run's first global index folds into the seed
+(``shifted_leaf_seed``) and the leaf's last dim is the signs' row stride
+(the kernels' ``n_cols``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import NamedTuple, Optional
 
@@ -125,21 +129,51 @@ def local_layout(shape, mesh, placements):
 def shard_index(shape, local_shape, offset, rows=None, device=None):
     """Global row-major flat indices (int64, flattened) of a local block
     of ``local_shape`` at ``offset`` in a tensor of ``shape``, or of its
-    leading-dim rows ``rows = (start, stop)``.  A column shard's indices
-    are strided, not one range, so they are built dim by dim."""
+    rows ``rows = (start, stop)``, the block viewed as a matrix [every
+    leading dim, last dim].  A column shard's indices are strided, not
+    one range, so each row's start is built dim by dim."""
     if not shape:
         return torch.zeros((1,), dtype=torch.int64, device=device)
-    lo, hi = rows if rows is not None else (0, local_shape[0])
-    dims = (hi - lo,) + tuple(local_shape[1:])
-    stride = 1
-    idx = torch.zeros((), dtype=torch.int64, device=device)
-    for d in range(len(shape) - 1, -1, -1):
-        start = offset[d] + (lo if d == 0 else 0)
-        ar = torch.arange(start, start + dims[d], dtype=torch.int64,
-                          device=device) * stride
-        idx = idx + ar.reshape((dims[d],) + (1,) * (len(shape) - 1 - d))
+    lo, hi = rows if rows is not None else (0, math.prod(local_shape[:-1]))
+    rest = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    base = torch.zeros_like(rest)
+    stride = shape[-1]
+    for d in range(len(shape) - 2, -1, -1):
+        base = base + (rest % local_shape[d] + offset[d]) * stride
+        rest = torch.div(rest, local_shape[d], rounding_mode="floor")
         stride *= shape[d]
-    return idx.reshape(-1)
+    cols = torch.arange(offset[-1], offset[-1] + local_shape[-1],
+                        dtype=torch.int64, device=device)
+    return (base[:, None] + cols[None, :]).reshape(-1)
+
+
+def local_device(leaf):
+    """The device of a leaf's data (a DTensor's local shard's)."""
+    return leaf.to_local().device if is_dtensor(leaf) else leaf.device
+
+
+def shard_runs(shape, local_shape, offset):
+    """The local block (``local_shape`` at ``offset``) of a tensor of
+    ``shape``, ndim ≥ 2, as runs the kernels take: [(index into the local
+    block, global row-major index of the run's first element)].  A run is
+    the local sub-block below its index, contiguous, whose rows lie one
+    global row stride apart once viewed as a matrix [rows, shape[-1]]: the
+    kernel takes it with ``n_cols = shape[-1]`` and its first index folded
+    into the seed.  One run unless a row dim other than the outermost is
+    split, as a row shard of a stacked [L, d_in, d_out] bank is (one run a
+    layer)."""
+    n = len(shape)
+    m = n - 2
+    while m > 0 and local_shape[m] == shape[m]:
+        m -= 1
+    strides = [math.prod(shape[d + 1:]) for d in range(n)]
+    base = offset[m] * strides[m] + offset[n - 1]
+    runs = []
+    for idx in itertools.product(*(range(t) for t in local_shape[:m])):
+        start = base + sum((i + offset[d]) * strides[d]
+                           for d, i in enumerate(idx))
+        runs.append((idx, start))
+    return runs
 
 
 def _leaf_index(leaf, n: int):
@@ -171,9 +205,10 @@ def _rademacher_values(leaf, lseed, dtheta, dtype, chunk=None):
     dev = leaf.to_local().device
     res = torch.empty(local_shape, dtype=dtype, device=dev)
     if res.numel():
-        rows = local_shape[0] if local_shape else 1
-        flat = res.reshape(rows, -1)
-        step_rows = max(1, chunk // max(1, flat.shape[1]))
+        cols = local_shape[-1] if local_shape else 1
+        rows = res.numel() // cols
+        flat = res.reshape(rows, cols)
+        step_rows = max(1, chunk // cols)
         for r0 in range(0, rows, step_rows):
             r1 = min(rows, r0 + step_rows)
             idx = shard_index(tuple(leaf.shape), local_shape, offset,
@@ -184,6 +219,15 @@ def _rademacher_values(leaf, lseed, dtheta, dtype, chunk=None):
     return DTensor.from_local(res, leaf.device_mesh, leaf.placements,
                               run_check=False, shape=leaf.shape,
                               stride=leaf.stride())
+
+
+def leaf_theta(leaf, lseed, dtheta, dtype=None):
+    """Rademacher θ̃ = signs·f32(Δθ) of a leaf under leaf seed ``lseed``,
+    as ``generate`` forms it, in ``dtype`` (default the leaf's): a plain
+    tensor for a plain leaf, the local shard's as a DTensor of the leaf's
+    placements for a DTensor leaf (a layer slice of a stacked bank takes
+    its layer's offset folded into ``lseed``)."""
+    return _rademacher_values(leaf, lseed, dtheta, dtype or leaf.dtype)
 
 
 def _as_leaf(values, leaf, dtype):
@@ -253,18 +297,6 @@ def generate_signs_only(params_like, *, step: int, seed: int,
     return tree_unflatten(treedef, out)
 
 
-def rademacher_leaf(shape, dtype, lid: int, *, step: int, seed: int,
-                    dtheta: float, tau_p: int = 1, offset: int = 0,
-                    device=None) -> torch.Tensor:
-    """θ̃ for one leaf (or a row-major slice of a stacked leaf starting at
-    element ``offset``), bit for bit what ``generate`` emits for it."""
-    n = math.prod(shape)
-    pert_step = int(step) // int(tau_p)
-    idx = (_iota(n, device) + _u32(offset)) & MASK
-    sgn = rademacher_signs(leaf_seed(seed, pert_step, lid), idx)
-    return (sgn * f32(dtheta)).reshape(shape).to(dtype)
-
-
 THETA_CHUNK = 1 << 26   # elements a pass of ``perturbed_tree``'s hash
 
 
@@ -288,7 +320,7 @@ def perturbed_tree(params, *, step: int, seed: int, dtheta: float,
     elements: neither θ̃ nor its int64 hash temporaries ever exist whole,
     which a full-width materializing probe could not hold beside the
     params.  A DTensor leaf is formed on its local shard, in passes of
-    whole leading-dim rows."""
+    whole rows of its matrix view (every leading dim × the last)."""
     pert_step = int(step) // int(tau_p)
     leaves, treedef = tree_flatten(params)
     out = []
@@ -317,11 +349,11 @@ def _perturbed_shard(leaf, lseed, dtheta, sign, chunk):
     local_shape, offset = shard_layout(leaf)
     res = torch.empty_like(local)
     if local.numel():
-        rows = local_shape[0] if local.dim() else 1
-        per_row = max(1, local.numel() // max(rows, 1))
-        step_rows = max(1, chunk // per_row)
-        flat_res = res.reshape(rows, -1)
-        flat_in = local.reshape(rows, -1)
+        cols = local_shape[-1] if local.dim() else 1
+        rows = local.numel() // cols
+        step_rows = max(1, chunk // cols)
+        flat_res = res.reshape(rows, cols)
+        flat_in = local.reshape(rows, cols)
         for r0 in range(0, rows, step_rows):
             r1 = min(rows, r0 + step_rows)
             idx = shard_index(tuple(leaf.shape), local_shape, offset,
@@ -386,15 +418,6 @@ class Probe(NamedTuple):
         """Per-leaf kernel seed: the hash chain of ``generate``."""
         return leaf_seed(self.seed, int(self.step) // int(self.ctx.tau_p),
                          leaf_id)
-
-    def leaf_theta(self, shape, dtype, leaf_id: int, offset: int = 0,
-                   device=None) -> torch.Tensor:
-        """Materialized θ̃ for a (slice of a) leaf the kernels do not
-        cover (biases)."""
-        return rademacher_leaf(
-            shape, dtype, leaf_id, step=self.step, seed=self.seed,
-            dtheta=self.ctx.dtheta, tau_p=self.ctx.tau_p, offset=offset,
-            device=device)
 
 
 def orthogonality_check(ptype, n_params, n_steps, *, seed=0, dtheta=1.0,

@@ -177,9 +177,8 @@ def _fused_pod_update(cfg, params, step, coefs, n: int):
 
     def small(leaf, lid):
         for k in range(n):
-            theta = pert.rademacher_leaf(
-                leaf.shape, leaf.dtype, lid, step=step, seed=seeds[k],
-                dtheta=cfg.dtheta, tau_p=cfg.tau_p, device=leaf.device)
+            theta = pert.leaf_theta(leaf, pert.leaf_seed(seeds[k], pstep,
+                                                         lid), cfg.dtheta)
             leaf = (leaf.float() + coefs[k] * theta.float()).to(leaf.dtype)
         return leaf
 
@@ -241,11 +240,6 @@ def build_probe_parallel_step(
                 f"mesh axes {tuple(axis_names)} have no data axis "
                 f"{data_axis!r}")
     ranks = shd.is_device_mesh(mesh)
-    if param_specs is not None and cfg.fused:
-        raise NotImplementedError(
-            "param_specs= with cfg.fused=True: the fused probe on a "
-            "parameter-sharded mesh is ROADMAP A15b; the unfused path "
-            "takes param_specs")
     from repro_torch.core.mgd import _resolve_plant
     plant = _resolve_plant(loss_fn, cfg, probe_fn=probe_fn, plant=plant)
     if plant.meta.external:

@@ -278,11 +278,21 @@ def place(x, spec, mesh):
 def shard(x, *names):
     """Activation placement in logical names on the active DeviceMesh;
     ``x`` untouched without one, so every one-card path stays bitwise as
-    it is."""
+    it is.  Mesh axes of one rank are left out of the placement: a split
+    into one block changes no data, and DTensor would refuse to merge
+    such a dim in a later view."""
     mesh = _ACTIVE_MESH
     if mesh is None or not is_device_mesh(mesh):
         return x
-    return place(x, logical_spec(x.shape, names, mesh), mesh)
+    _, sizes = mesh_axes(mesh)
+    spec = []
+    for entry in logical_spec(x.shape, names, mesh):
+        axes = (() if entry is None else (entry,) if isinstance(entry, str)
+                else tuple(entry))
+        axes = tuple(a for a in axes if sizes[a] > 1)
+        spec.append(None if not axes else axes[0] if len(axes) == 1
+                    else axes)
+    return place(x, P(*spec), mesh)
 
 
 def mesh_ops():
@@ -307,11 +317,11 @@ def settle(x):
         x.device_mesh, pl)
 
 
-def replicate(x):
-    """A tensor made inside the model, as a replicated DTensor on the
-    active DeviceMesh (untouched without one), so it combines with
-    sharded activations."""
-    mesh = _ACTIVE_MESH
+def replicate(x, mesh=None):
+    """A tensor made inside the model, as a replicated DTensor on ``mesh``
+    (default: the active DeviceMesh; untouched without one), so it
+    combines with sharded activations."""
+    mesh = mesh if mesh is not None else _ACTIVE_MESH
     if mesh is None or not is_device_mesh(mesh) or is_dtensor(x):
         return x
     from torch.distributed.tensor import DTensor, Replicate
@@ -335,6 +345,13 @@ def _local_work(n_blocks: int):
         _LOCAL_SCALE[0] = prev
 
 
+def block_work(mesh, placements):
+    """Context for plain-tensor work on this rank's block of a global op
+    laid out by ``placements`` on ``mesh`` (``launch.op_cost`` counts it
+    once a block)."""
+    return _local_work(_n_blocks(mesh, placements))
+
+
 def local_work_scale() -> int:
     """0 outside ``per_shard``/``decode_per_shard``, else the number of
     distinct blocks the local work is one of."""
@@ -356,52 +373,92 @@ def per_shard(fn, *xs):
     the first argument's placements; plain tensors go straight in."""
     if not any(is_dtensor(x) for x in xs):
         return fn(*xs)
-    from torch.distributed.tensor import DTensor
-    ref = xs[0]
     for x in xs[1:]:
-        if tuple(x.placements) != tuple(ref.placements):
+        if tuple(x.placements) != tuple(xs[0].placements):
             raise ValueError(f"per_shard: placements {x.placements} and "
-                             f"{ref.placements} differ")
-    with _local_work(_n_blocks(ref.device_mesh, ref.placements)):
-        out = fn(*(x.to_local() for x in xs))
-    shape = list(ref.shape)
+                             f"{xs[0].placements} differ")
+    return local_apply(fn, *xs)
+
+
+def _like(out, ref, fn=None):
+    """The local result ``out`` as a DTensor with ``ref``'s placements:
+    dims that ``ref`` splits keep its global size, others take the local
+    result's."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.core.perturbations import local_layout
+    shape = list(ref.shape)
     local_shape, _ = local_layout(tuple(ref.shape), ref.device_mesh,
                                   tuple(ref.placements))
     for d, (n_out, n_in) in enumerate(zip(out.shape, local_shape)):
         if n_out != n_in:
             if any(getattr(p, "dim", None) == d for p in ref.placements):
-                raise ValueError(f"per_shard: {fn} changed sharded dim {d}")
+                raise ValueError(f"{fn} changed sharded dim {d}")
             shape[d] = n_out
     shape = tuple(shape[:out.dim()]) + tuple(out.shape[len(shape):])
     stride = tuple(torch.empty(shape, device="meta").stride())
-    return DTensor.from_local(out, ref.device_mesh, ref.placements,
-                              run_check=False, shape=shape, stride=stride)
+    return DTensor.from_local(out.contiguous(), ref.device_mesh,
+                              ref.placements, run_check=False, shape=shape,
+                              stride=stride)
 
 
-def decode_per_shard(attend, q, k_cache, v_cache, length):
-    """Single-token attention ``attend`` (``models.attention.
-    decode_attention``) against a DTensor cache [B, S, KVH, D] on its
-    local shards: the query takes the cache's batch and head placements,
-    each rank attends to its block of the sequence, and where the cache
-    shards the sequence the softmax is combined over those mesh dims
-    (a max and two sums).  Returns [B, 1, H, Dv] with the query's
-    placements."""
+def local_apply(fn, *args, like=(0,)):
+    """``fn(*args)`` on the local shards of the DTensor arguments (others
+    go in as they are), for an op that is independent along every split
+    dim, the caller having placed the arguments so that each rank's
+    blocks belong together (the recurrences' (batch, head) shards).
+    Output i comes back with the placements of argument ``like[i]``
+    (``_like``).  No communication; plain arguments run ``fn`` as it is."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    ref = next(a for a in args if is_dtensor(a))
+    with _local_work(_n_blocks(ref.device_mesh, ref.placements)):
+        out = fn(*(a.to_local() if is_dtensor(a) else a for a in args))
+    if isinstance(out, tuple):
+        return tuple(_like(o, args[i], fn) for o, i in zip(out, like))
+    return _like(out, args[like[0]], fn)
+
+
+def copy_into(dst, src):
+    """``dst.copy_(src)`` in place, for a DTensor ``dst`` (a view of a
+    cache, say) whatever ``src``'s placements: ``src`` is settled and
+    laid out as ``dst``, then copied shard to shard."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return dst
+    src = settle(replicate(src, dst.device_mesh)).redistribute(
+        dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+    return dst
+
+
+def seq_per_shard(attend, queries, caches, length, shape):
+    """Single-token attention ``attend(*queries, *caches, length,
+    seq_offset=, combine=)`` against DTensor caches [B, S, ...] (all of
+    the first one's placements) on their local shards: the queries take
+    the caches' placements but the sequence's (their dim i where the
+    cache splits its dim i), each rank attends to its block of the
+    sequence, and where the caches shard the sequence the softmax is
+    combined over those mesh dims (a max and two sums).  Returns the
+    result, of global ``shape``, with the queries' placements."""
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.core.perturbations import local_layout
-    mesh = k_cache.device_mesh
-    seq_dims = [i for i, pl in enumerate(k_cache.placements)
-                if isinstance(pl, Shard) and pl.dim == 1]
-    want = tuple(Replicate() if i in seq_dims else pl
-                 for i, pl in enumerate(k_cache.placements))
-    if not is_dtensor(q):
-        q = replicate(q)
-    q = q.redistribute(mesh, want)
-    if tuple(v_cache.placements) != tuple(k_cache.placements):
-        v_cache = v_cache.redistribute(mesh, k_cache.placements)
-    _, offset = local_layout(tuple(k_cache.shape), mesh,
-                             tuple(k_cache.placements))
+    first = caches[0]
+    mesh = first.device_mesh
+    seq_all = [i for i, pl in enumerate(first.placements)
+               if isinstance(pl, Shard) and pl.dim == 1]
+    want = tuple(Replicate() if i in seq_all else pl
+                 for i, pl in enumerate(first.placements))
+    # a mesh dim of one rank splits nothing: no combine over it, so a
+    # one-rank mesh attends as one card does
+    seq_dims = [i for i in seq_all if mesh.size(i) > 1]
+    queries = tuple(settle(replicate(q, mesh)).redistribute(mesh, want)
+                    for q in queries)
+    caches = (first,) + tuple(
+        c if tuple(c.placements) == tuple(first.placements)
+        else c.redistribute(mesh, first.placements) for c in caches[1:])
+    _, offset = local_layout(tuple(first.shape), mesh,
+                             tuple(first.placements))
 
     def combine(x, op):
         for i in seq_dims:
@@ -409,11 +466,11 @@ def decode_per_shard(attend, q, k_cache, v_cache, length):
             x = funcol.wait_tensor(x) if hasattr(x, "wait") else x
         return x
 
-    with _local_work(_n_blocks(mesh, k_cache.placements)):
-        out = attend(q.to_local(), k_cache.to_local(), v_cache.to_local(),
-                     length, seq_offset=offset[1],
+    with _local_work(_n_blocks(mesh, first.placements)):
+        out = attend(*(q.to_local() for q in queries),
+                     *(c.to_local() for c in caches), length,
+                     seq_offset=offset[1],
                      combine=combine if seq_dims else None)
-    shape = tuple(q.shape[:3]) + (v_cache.shape[-1],)
     stride = tuple(torch.empty(shape, device="meta").stride())
     return DTensor.from_local(out, mesh, want, run_check=False, shape=shape,
                               stride=stride)

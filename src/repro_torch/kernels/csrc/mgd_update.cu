@@ -6,7 +6,10 @@
 //
 //      for j = 0..J−1 in order:  W ← W + S_j·term_j,  term_j = α·(Δθ·coef_j)
 //      S_j[i] = 1 − 2·(fmix32(i·0x9E3779B9 + lseed_j) >> 31), i the row-major
-//      linear index of the element in its leaf (uint32, wrapping)
+//      linear index of the element in its leaf (uint32, wrapping); for a
+//      block of a wider leaf (a column shard), viewed as [rows, cols] with
+//      the leaf's row stride n_cols > cols (the reference's `n_cols`), i is
+//      (r·n_cols + c) for the block's element (r, c)
 //
 //    The kernel forms term_j itself, from coef_j on the device and f32 α and
 //    Δθ by value, in the reference's association (__fmul_rn twice).  The
@@ -51,7 +54,14 @@
 //   XORed into the f32 addend.  A vector's hash inputs are one per-vector
 //   base plus constants: the index advances by 0x9E3779B9 an element, and
 //   the seed is added once a step;
-// * element offsets are 64-bit, and the uint32 sign index wraps at 2³².
+// * element offsets are 64-bit, and the uint32 sign index wraps at 2³²;
+// * a block of a wider leaf runs in kernels of its own (the *_strided_
+//   ones, their table holding each block's cols and n_cols), so the
+//   whole-leaf kernels' code is as it was.  There a vector's base index
+//   costs one 64-bit division, outside the J loop, when cols is a
+//   multiple of the vector width and the data starts on a 16-byte
+//   boundary (no vector then crosses a row); otherwise the block's
+//   elements all take the scalar path.
 #include "common.cuh"
 
 namespace {
@@ -61,6 +71,8 @@ constexpr int UNROLL = 2;                    // vectors a thread per tile
 constexpr int TILE_VECS = THREADS * UNROLL;
 constexpr int VEC_BYTES = 16;
 constexpr int MAX_LEAVES = 64;
+constexpr int MAX_STRIDED = 48;              // blocks a strided launch: the
+                                             // table stays within 4 KB
 constexpr int MAX_DEVICES = 64;
 
 struct Leaf {
@@ -80,6 +92,43 @@ struct Table {
   long long tiles;
   int count;
 };
+
+// a block of a wider leaf: the signs' row stride differs from its rows'
+struct StridedLeaf {
+  Leaf f;
+  int cols;     // the block's row length
+  int n_cols;   // the signs' row stride, > cols
+  int scalar;   // its rows split 16-byte vectors: every element is scalar
+                // (head = tail = 0, nvec counts groups of N elements)
+};
+
+struct StridedTable {
+  StridedLeaf leaf[MAX_STRIDED];
+  long long tiles;
+  int count;
+};
+
+__device__ __forceinline__ const Leaf& base(const Leaf& l) { return l; }
+__device__ __forceinline__ const Leaf& base(const StridedLeaf& l) {
+  return l.f;
+}
+
+// the sign index of element i: i itself, or for a block of a wider leaf
+// (i / cols)·n_cols + i % cols, wrapped to uint32
+__device__ __forceinline__ uint32_t sign_index(const Leaf&, long long i) {
+  return (uint32_t)i;
+}
+__device__ __forceinline__ uint32_t sign_index(const StridedLeaf& l,
+                                               long long i) {
+  return (uint32_t)((unsigned long long)(i / l.cols) *
+                        (unsigned long long)l.n_cols +
+                    (unsigned long long)(i % l.cols));
+}
+
+__device__ __forceinline__ bool all_scalar(const Leaf&) { return false; }
+__device__ __forceinline__ bool all_scalar(const StridedLeaf& l) {
+  return l.scalar;
+}
 
 template <typename T>
 struct Vec;
@@ -137,13 +186,14 @@ __device__ __forceinline__ float finish(float w, float v, float a) {
   return kSum ? __fsub_rn(w, __fmul_rn(a, v)) : v;
 }
 
-// one element i of leaf f, scalar: the head and the tail
-template <typename T, bool kSum>
+// one element i of leaf l, scalar: the head and the tail
+template <typename T, bool kSum, typename L>
 __device__ __forceinline__ void update_element(
-    const Leaf& f, long long i, const int* __restrict__ lseeds,
+    const L& l, long long i, const int* __restrict__ lseeds,
     const float* __restrict__ coefs, int J, float a, float b) {
+  const Leaf& f = base(l);
   const float w = mgd::load_f32(static_cast<const T*>(f.in), i);
-  const uint32_t g = (uint32_t)i * mgd::kGolden;
+  const uint32_t g = sign_index(l, i) * mgd::kGolden;
   float v = kSum ? 0.0f : w;
   for (int j = 0; j < J; ++j) {
     const uint32_t seed = (uint32_t)__ldg(lseeds + f.seeds + j);
@@ -153,19 +203,30 @@ __device__ __forceinline__ void update_element(
   mgd::store_f32(static_cast<T*>(f.out), i, finish<kSum>(w, v, a));
 }
 
-template <typename T, bool kSum>
+template <typename T, bool kSum, typename Tab>
 __device__ __forceinline__ void update_tiles(
-    const Table& tab, const int* __restrict__ lseeds,
+    const Tab& tab, const int* __restrict__ lseeds,
     const float* __restrict__ coefs, int J, float a, float b) {
   using V = Vec<T>;
   constexpr int N = V::N;
   int l = 0;
   for (long long t = blockIdx.x; t < tab.tiles; t += gridDim.x) {
-    while (l + 1 < tab.count && tab.leaf[l + 1].tile0 <= t) ++l;
-    const Leaf& f = tab.leaf[l];
+    while (l + 1 < tab.count && base(tab.leaf[l + 1]).tile0 <= t) ++l;
+    const auto& leaf = tab.leaf[l];
+    const Leaf& f = base(leaf);
     const T* in = static_cast<const T*>(f.in) + f.head;
     T* out = static_cast<T*>(f.out) + f.head;
     const long long k0 = (t - f.tile0) * TILE_VECS + threadIdx.x;
+    if (all_scalar(leaf)) {
+#pragma unroll 1
+      for (int u = 0; u < UNROLL; ++u) {
+        const long long k = k0 + (long long)u * THREADS;
+        for (int e = 0; e < N && k < f.nvec; ++e)
+          if (k * N + e < f.numel)
+            update_element<T, kSum>(leaf, k * N + e, lseeds, coefs, J, a, b);
+      }
+      continue;
+    }
     uint4 raw[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -183,7 +244,7 @@ __device__ __forceinline__ void update_tiles(
       } else {
         V::unpack(raw[u], v[u]);
       }
-      g[u] = (uint32_t)(f.head + (k0 + (long long)u * THREADS) * N) *
+      g[u] = sign_index(leaf, f.head + (k0 + (long long)u * THREADS) * N) *
              mgd::kGolden;
     }
 #pragma unroll 1
@@ -219,10 +280,10 @@ __device__ __forceinline__ void update_tiles(
     if (t == f.tile0) {   // the leaf's scalar head and tail
       const int i = threadIdx.x;
       if (i < f.head)
-        update_element<T, kSum>(f, i, lseeds, coefs, J, a, b);
+        update_element<T, kSum>(leaf, i, lseeds, coefs, J, a, b);
       else if (i >= THREADS - f.tail)
-        update_element<T, kSum>(f, f.numel - (THREADS - i), lseeds, coefs, J,
-                                a, b);
+        update_element<T, kSum>(leaf, f.numel - (THREADS - i), lseeds, coefs,
+                                J, a, b);
     }
   }
 }
@@ -244,8 +305,26 @@ mgd_update_kernel(const __grid_constant__ Table tab,
   update_tiles<T, true>(tab, lseeds, coefs, J, scale, 0.0f);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+mgd_update_window_strided_kernel(const __grid_constant__ StridedTable tab,
+                                 const int* __restrict__ lseeds,
+                                 const float* __restrict__ coefs, int J,
+                                 float alpha, float dtheta) {
+  update_tiles<T, false>(tab, lseeds, coefs, J, alpha, dtheta);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+mgd_update_strided_kernel(const __grid_constant__ StridedTable tab,
+                          const int* __restrict__ lseeds,
+                          const float* __restrict__ coefs, int J,
+                          float scale) {
+  update_tiles<T, true>(tab, lseeds, coefs, J, scale, 0.0f);
+}
+
 // CTAs of the kernel resident on all SMs of the current device, cached
-template <typename T, bool kSum>
+template <typename T, bool kSum, bool kStrided>
 cudaError_t persistent_grid(int* grid) {
   static int cached[MAX_DEVICES] = {};
   int dev = 0;
@@ -256,7 +335,13 @@ cudaError_t persistent_grid(int* grid) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    if (kSum)
+    if (kStrided && kSum)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mgd_update_strided_kernel<T>, THREADS, 0);
+    else if (kStrided)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mgd_update_window_strided_kernel<T>, THREADS, 0);
+    else if (kSum)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, mgd_update_kernel<T>, THREADS, 0);
     else
@@ -269,80 +354,138 @@ cudaError_t persistent_grid(int* grid) {
   return cudaSuccess;
 }
 
+// the table entry of leaf l and its tiles; false for operands the kernels
+// do not take.  A strided leaf whose rows split 16-byte vectors is scalar.
+template <typename T>
+bool fill(Leaf& f, int* scalar, int l, const void* const* ins,
+          void* const* outs, const long long* numels, const long long* cols,
+          const long long* n_cols, const int* rows, int J, long long* tiles) {
+  constexpr int N = Vec<T>::N;
+  const uintptr_t in = reinterpret_cast<uintptr_t>(ins[l]);
+  const uintptr_t out = reinterpret_cast<uintptr_t>(outs[l]);
+  if (numels[l] <= 0 || rows[l] < 0 || in % sizeof(T) || out % sizeof(T) ||
+      cols[l] <= 0 || numels[l] % cols[l] || n_cols[l] < cols[l] ||
+      n_cols[l] > 0x7FFFFFFFLL)
+    return false;
+  f.in = ins[l];
+  f.out = outs[l];
+  f.numel = numels[l];
+  const long long head = (long long)((VEC_BYTES - in % VEC_BYTES) %
+                                     VEC_BYTES / sizeof(T));
+  f.head = (int)(head < f.numel ? head : f.numel);
+  f.nvec = (f.numel - f.head) / N;
+  f.tail = (int)(f.numel - f.head - f.nvec * N);
+  f.seeds = rows[l] * J;
+  f.vec_store = (out - in) % VEC_BYTES == 0;
+  if (scalar) {
+    *scalar = f.head != 0 || cols[l] % N != 0;
+    if (*scalar) {
+      f.head = f.tail = 0;
+      f.nvec = (f.numel + N - 1) / N;
+    }
+  }
+  f.tile0 = *tiles;
+  *tiles += f.nvec > 0 ? (f.nvec + TILE_VECS - 1) / TILE_VECS : 1;
+  return true;
+}
+
+// one launch over the leaves, all whole (n_cols == cols) or all blocks of
+// wider leaves (n_cols > cols: the strided kernels)
 template <typename T, bool kSum>
 cudaError_t launch(int count, const void* const* ins, void* const* outs,
-                   const long long* numels, const int* rows,
+                   const long long* numels, const long long* cols,
+                   const long long* n_cols, const int* rows,
                    const int* lseeds, const float* coefs, int J, float a,
                    float b, cudaStream_t stream) {
-  constexpr int N = Vec<T>::N;
-  Table tab = {};
+  const bool strided = n_cols[0] != cols[0];
+  for (int l = 0; l < count; ++l)
+    if ((n_cols[l] != cols[l]) != strided) return cudaErrorInvalidValue;
   long long tiles = 0;
+  int grid = 0;
+  if (!strided) {
+    Table tab = {};
+    for (int l = 0; l < count; ++l)
+      if (!fill<T>(tab.leaf[l], nullptr, l, ins, outs, numels, cols, n_cols,
+                   rows, J, &tiles))
+        return cudaErrorInvalidValue;
+    tab.tiles = tiles;
+    tab.count = count;
+    const cudaError_t err = persistent_grid<T, kSum, false>(&grid);
+    if (err != cudaSuccess) return err;
+    if (grid > tiles) grid = (int)tiles;
+    if (kSum)
+      mgd_update_kernel<T><<<grid, THREADS, 0, stream>>>(tab, lseeds, coefs,
+                                                        J, a);
+    else
+      mgd_update_window_kernel<T><<<grid, THREADS, 0, stream>>>(
+          tab, lseeds, coefs, J, a, b);
+    return cudaGetLastError();
+  }
+  if (count > MAX_STRIDED) return cudaErrorInvalidValue;
+  StridedTable tab = {};
   for (int l = 0; l < count; ++l) {
-    const uintptr_t in = reinterpret_cast<uintptr_t>(ins[l]);
-    const uintptr_t out = reinterpret_cast<uintptr_t>(outs[l]);
-    if (numels[l] <= 0 || rows[l] < 0 || in % sizeof(T) || out % sizeof(T))
+    StridedLeaf& s = tab.leaf[l];
+    if (!fill<T>(s.f, &s.scalar, l, ins, outs, numels, cols, n_cols, rows, J,
+                 &tiles))
       return cudaErrorInvalidValue;
-    Leaf& f = tab.leaf[l];
-    f.in = ins[l];
-    f.out = outs[l];
-    f.numel = numels[l];
-    const long long head = (long long)((VEC_BYTES - in % VEC_BYTES) %
-                                       VEC_BYTES / sizeof(T));
-    f.head = (int)(head < f.numel ? head : f.numel);
-    f.nvec = (f.numel - f.head) / N;
-    f.tail = (int)(f.numel - f.head - f.nvec * N);
-    f.seeds = rows[l] * J;
-    f.vec_store = (out - in) % VEC_BYTES == 0;
-    f.tile0 = tiles;
-    tiles += f.nvec > 0 ? (f.nvec + TILE_VECS - 1) / TILE_VECS : 1;
+    s.cols = (int)cols[l];
+    s.n_cols = (int)n_cols[l];
   }
   tab.tiles = tiles;
   tab.count = count;
-  int grid = 0;
-  const cudaError_t err = persistent_grid<T, kSum>(&grid);
+  const cudaError_t err = persistent_grid<T, kSum, true>(&grid);
   if (err != cudaSuccess) return err;
   if (grid > tiles) grid = (int)tiles;
   if (kSum)
-    mgd_update_kernel<T><<<grid, THREADS, 0, stream>>>(tab, lseeds, coefs, J,
-                                                      a);
+    mgd_update_strided_kernel<T><<<grid, THREADS, 0, stream>>>(
+        tab, lseeds, coefs, J, a);
   else
-    mgd_update_window_kernel<T><<<grid, THREADS, 0, stream>>>(
+    mgd_update_window_strided_kernel<T><<<grid, THREADS, 0, stream>>>(
         tab, lseeds, coefs, J, a, b);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (bound with ctypes).  One launch updates `count` leaves (1 to
-// MAX_LEAVES) of dtype w_dtype (0 f32, 1 bf16), out of place: leaf l has
-// numels[l] contiguous elements at ins[l], written to outs[l], and its J
-// seeds in row rows[l] of lseeds ([rows, J] int32 holding the uint32 bit
-// patterns); coefs is [J] f32.  kind 0 is the window update (a = f32 α,
-// b = f32 Δθ), kind 1 the sum-then-subtract update (a = f32 η/Δθ).  All
-// pointers but the host arrays are on the current device.  Launches on
+// C interface (bound with ctypes).  One launch updates `count` leaves of
+// dtype w_dtype (0 f32, 1 bf16), out of place: leaf l has numels[l]
+// contiguous elements at ins[l], written to outs[l], viewed as rows of
+// cols[l] elements whose signs' row stride is n_cols[l] ≥ cols[l], and its
+// J seeds in row rows[l] of lseeds ([rows, J] int32 holding the uint32
+// bit patterns); coefs is [J] f32.  Either every leaf is whole (n_cols ==
+// cols; 1 to MAX_LEAVES of them) or every leaf is a block of a wider one
+// (n_cols > cols; 1 to MAX_STRIDED).  kind 0 is the window update (a =
+// f32 α, b = f32 Δθ), kind 1 the sum-then-subtract update (a = f32 η/Δθ).
+// All pointers but the host arrays are on the current device.  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int mgd_update_group_launch(int kind, int count,
                                        const void* const* ins,
                                        void* const* outs,
-                                       const long long* numels, const int* rows,
-                                       const void* lseeds, const void* coefs,
-                                       int J, float a, float b, int w_dtype,
-                                       void* stream) {
+                                       const long long* numels,
+                                       const long long* cols,
+                                       const long long* n_cols,
+                                       const int* rows, const void* lseeds,
+                                       const void* coefs, int J, float a,
+                                       float b, int w_dtype, void* stream) {
   if (count < 1 || count > MAX_LEAVES || J < 0 || (kind != 0 && kind != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* s = static_cast<const int*>(lseeds);
   const float* c = static_cast<const float*>(coefs);
   if (w_dtype == mgd::kF32)
-    return (int)(kind ? launch<float, true>(count, ins, outs, numels, rows,
-                                            s, c, J, a, b, st)
-                      : launch<float, false>(count, ins, outs, numels, rows,
-                                             s, c, J, a, b, st));
+    return (int)(kind ? launch<float, true>(count, ins, outs, numels, cols,
+                                            n_cols, rows, s, c, J, a, b, st)
+                      : launch<float, false>(count, ins, outs, numels, cols,
+                                             n_cols, rows, s, c, J, a, b,
+                                             st));
   if (w_dtype == mgd::kBF16)
     return (int)(kind ? launch<__nv_bfloat16, true>(count, ins, outs, numels,
-                                                    rows, s, c, J, a, b, st)
-                      : launch<__nv_bfloat16, false>(count, ins, outs, numels,
-                                                     rows, s, c, J, a, b, st));
+                                                    cols, n_cols, rows, s, c,
+                                                    J, a, b, st)
+                      : launch<__nv_bfloat16, false>(count, ins, outs,
+                                                     numels, cols, n_cols,
+                                                     rows, s, c, J, a, b,
+                                                     st));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,11 @@
 //
 //   single:  y  = x  @ (W + amp·S)
 //   pair:    yp = xp @ (W + Δθ·S),  ym = xm @ (W − Δθ·S)   (one read of W)
-//   S[r,c] = 1 − 2·(fmix32((r·N + c)·0x9E3779B9 + lseed) >> 31),  uint32
+//   S[r,c] = 1 − 2·(fmix32((r·n_cols + c)·0x9E3779B9 + lseed) >> 31),  uint32
+//
+// n_cols ≥ N is the row stride of the sign index (the reference's
+// `n_cols`): N for a whole leaf, the leaf's N for a column block of it (its
+// offset folds into lseed, perturbations.shifted_leaf_seed).
 //
 // The perturbation θ̃ = amp·S never exists in device memory: each W tile
 // is perturbed while it is staged into shared memory, from the element's
@@ -40,7 +44,7 @@ struct PMArgs {
   const void* w;
   void* y0;
   void* y1;
-  int M, K, N;
+  int M, K, N, n_cols;
   uint32_t lseed;
   float amp0, amp1;
 };
@@ -50,7 +54,7 @@ template <int NS, typename TX, typename TW, typename TY>
 __global__ void __launch_bounds__(THREADS)
 perturbed_matmul_kernel(const TX* __restrict__ x0, const TX* __restrict__ x1,
                         const TW* __restrict__ w, TY* __restrict__ y0,
-                        TY* __restrict__ y1, int M, int K, int N,
+                        TY* __restrict__ y1, int M, int K, int N, int n_cols,
                         uint32_t lseed, float amp0, float amp1) {
   // x tiles are stored transposed, padded by one column against bank
   // conflicts on the transposing store
@@ -93,9 +97,9 @@ perturbed_matmul_kernel(const TX* __restrict__ x0, const TX* __restrict__ x1,
       float wp1 = 0.0f;
       if (gk < K && gn < N) {
         const float wv = mgd::load_f32(w, (long long)gk * N + gn);
-        // sign index over the unpadded row stride N, in uint32 arithmetic
+        // sign index over the row stride n_cols, in uint32 arithmetic
         const float sg =
-            mgd::rademacher_sign((uint32_t)gk * (uint32_t)N + (uint32_t)gn, lseed);
+            mgd::rademacher_sign((uint32_t)gk * (uint32_t)n_cols + (uint32_t)gn, lseed);
         // amp·sg is exact (sg = ±1): one rounding, as in the plain version
         wp0 = __fadd_rn(wv, __fmul_rn(amp0, sg));
         if constexpr (NS == 2) wp1 = __fadd_rn(wv, __fmul_rn(amp1, sg));
@@ -145,7 +149,7 @@ cudaError_t launch_typed(const PMArgs& a, cudaStream_t stream) {
   perturbed_matmul_kernel<NS, TX, TW, TY><<<grid, THREADS, 0, stream>>>(
       static_cast<const TX*>(a.x0), static_cast<const TX*>(a.x1),
       static_cast<const TW*>(a.w), static_cast<TY*>(a.y0),
-      static_cast<TY*>(a.y1), a.M, a.K, a.N, a.lseed, a.amp0, a.amp1);
+      static_cast<TY*>(a.y1), a.M, a.K, a.N, a.n_cols, a.lseed, a.amp0, a.amp1);
   return cudaGetLastError();
 }
 
@@ -175,15 +179,16 @@ cudaError_t launch_x(int x_dtype, int w_dtype, int y_dtype, const PMArgs& a,
 
 // C interface (bound with ctypes).  n_streams is 1 (single) or 2 (pair);
 // x1/y1 are unused for a single stream.  x: [M,K], W: [K,N], y: [M,N], all
-// contiguous row-major on the current device.  Launches on `stream`,
+// contiguous row-major on the current device; n_cols ≥ N is the signs' row
+// stride.  Launches on `stream`,
 // allocates nothing, and returns cudaGetLastError().
 extern "C" int pm_launch(int n_streams, const void* x0, const void* x1, const void* w,
-                         void* y0, void* y1, int M, int K, int N, int x_dtype,
+                         void* y0, void* y1, int M, int K, int N, int n_cols, int x_dtype,
                          int w_dtype, int y_dtype, unsigned int lseed, float amp0,
                          float amp1, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K < 0 || n_cols < N) return (int)cudaErrorInvalidValue;
   if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
-  const PMArgs a{x0, x1, w, y0, y1, M, K, N, (uint32_t)lseed, amp0, amp1};
+  const PMArgs a{x0, x1, w, y0, y1, M, K, N, n_cols, (uint32_t)lseed, amp0, amp1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_streams == 1) return (int)launch_x<1>(x_dtype, w_dtype, y_dtype, a, st);
   if (n_streams == 2) return (int)launch_x<2>(x_dtype, w_dtype, y_dtype, a, st);

@@ -8,7 +8,10 @@
 //
 //   single:  y  = x  @ (W + amp·S)
 //   pair:    yp = xp @ (W + Δθ·S),  ym = xm @ (W − Δθ·S)
-//   S[r,c] = 1 − 2·(fmix32((r·N + c)·0x9E3779B9 + lseed) >> 31),  uint32
+//   S[r,c] = 1 − 2·(fmix32((r·n_cols + c)·0x9E3779B9 + lseed) >> 31),  uint32
+//   (n_cols ≥ N the signs' row stride: N for a whole leaf, the leaf's N for
+//   a column block of it; the tensor maps, tiling and clusters follow the
+//   local [K, N] alone)
 //
 // Exact split form.  The TPU kernel forms x_f32 @ (W_f32 + amp·S) in f32.
 // That equals x·W + amp·(x·S): with bf16 x and W and S = ±1 every product
@@ -261,7 +264,7 @@ perturbed_matmul_tc_kernel(const __grid_constant__ CUtensorMap map_x0,
                            const __grid_constant__ CUtensorMap map_x1,
                            const __grid_constant__ CUtensorMap map_w,
                            TY* __restrict__ y0, TY* __restrict__ y1, int M, int K,
-                           int N, uint32_t lseed, float amp0, float amp1) {
+                           int N, int n_cols, uint32_t lseed, float amp0, float amp1) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled boxes need 1024-byte alignment
   const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -406,7 +409,7 @@ perturbed_matmul_tc_kernel(const __grid_constant__ CUtensorMap map_x0,
         const int item = ht + HASH_THREADS * j;
         const int r = rank * SHARE_ROWS + (item >> 4);   // K row in the stage
         const int q = item & 15;                         // chunk along the 128 columns
-        const uint32_t idx = (uint32_t)(k0 + r) * (uint32_t)N + (uint32_t)(n0 + 8 * q);
+        const uint32_t idx = (uint32_t)(k0 + r) * (uint32_t)n_cols + (uint32_t)(n0 + 8 * q);
         const uint32_t h = idx * mgd::kGolden + lseed;
         uint32_t v[4];
 #pragma unroll
@@ -489,7 +492,7 @@ struct Operands {
   const void* w;
   void* y0;
   void* y1;
-  int M, K, N;
+  int M, K, N, n_cols;
   uint32_t lseed;
   float amp0, amp1;
 };
@@ -523,7 +526,8 @@ cudaError_t launch_typed(const Operands& a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, mx0, mx1, mw, static_cast<TY*>(a.y0),
-                         static_cast<TY*>(a.y1), a.M, a.K, a.N, a.lseed, a.amp0, a.amp1);
+                         static_cast<TY*>(a.y1), a.M, a.K, a.N, a.n_cols, a.lseed, a.amp0,
+                         a.amp1);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -545,22 +549,22 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // tc_cluster picks it); x1/y1 are unused for a single stream.  x: [M,K]
 // bf16, W: [K,N] bf16, y: [M,N] f32 (y_dtype 0) or bf16 (1), all
 // contiguous row-major on the current device, x and W 16-byte aligned, K
-// and N multiples of 8.  The tensor maps are encoded here, per call.
+// and N multiples of 8; n_cols ≥ N is the signs' row stride.  The tensor maps are encoded here, per call.
 // Launches on `stream`, allocates nothing, and returns cudaGetLastError()
 // (cudaErrorInvalidValue for operands it does not take,
 // cudaErrorSymbolNotFound if the driver has no tensor-map encoder).
 extern "C" int pmtc_launch(int n_streams, int cluster, const void* x0, const void* x1,
                            const void* w, void* y0, void* y1, int M, int K, int N,
-                           int y_dtype, unsigned int lseed, float amp0, float amp1,
+                           int n_cols, int y_dtype, unsigned int lseed, float amp0, float amp1,
                            void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0)
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || n_cols < N)
     return (int)cudaErrorInvalidValue;
   if (n_streams != 1 && n_streams != 2) return (int)cudaErrorInvalidValue;
   if (!aligned16(x0) || !aligned16(w) || (n_streams == 2 && !aligned16(x1)))
     return (int)cudaErrorInvalidValue;
   if ((N + BN - 1) / BN > 65535) return (int)cudaErrorInvalidConfiguration;
   if (encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
-  const Operands a{x0, x1, w, y0, y1, M, K, N, (uint32_t)lseed, amp0, amp1};
+  const Operands a{x0, x1, w, y0, y1, M, K, N, n_cols, (uint32_t)lseed, amp0, amp1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_streams == 1 && y_dtype == mgd::kF32)
     return (int)launch_clustered<1, float>(cluster, a, st);

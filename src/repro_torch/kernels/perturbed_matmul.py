@@ -2,7 +2,9 @@
 
 ``perturbed_matmul`` computes y = x @ (W + amp·S) and
 ``perturbed_matmul_pair`` (xp @ (W + Δθ·S), xm @ (W − Δθ·S)) with one read
-of W, S the counter-hashed Rademacher signs of the leaf seed.  They take
+of W, S the counter-hashed Rademacher signs of the leaf seed, S[r, c] hashed
+at r·n_cols + c (``n_cols`` defaults to N; a column block of a wider leaf
+passes the leaf's N, its offset folded into the seed).  They take
 2-D contiguous operands; ``kernels.ops`` flattens lead dims and routes CPU
 tensors to the plain versions.
 
@@ -26,13 +28,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p]
 
 
 _TC_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
                 ctypes.c_void_p]
 ROUTES = ("tc", "simt")
 TC_ALIGN = 8     # TMA needs 16-byte row strides: K, N multiples of 8 bf16
@@ -91,7 +94,19 @@ def tc_cluster(n_streams: int, m: int) -> int:
     return 4 if blocks % 4 == 0 else 2 if blocks >= 2 else 1
 
 
-def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster):
+def check_n_cols(n_cols, n: int) -> int:
+    """The signs' row stride: ``n`` for None, else ``n_cols`` ≥ ``n``
+    (a column block of a leaf of ``n_cols`` columns)."""
+    if n_cols is None:
+        return n
+    n_cols = int(n_cols)
+    if not n <= n_cols < 2 ** 31:
+        raise ValueError(f"n_cols={n_cols} must lie in [N={n}, 2**31): the "
+                         f"signs' row stride of a leaf of at least N columns")
+    return n_cols
+
+
+def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster, n_cols=None):
     """Launch ``kernel`` (None: the one ``route`` picks); returns (outputs,
     the route taken, or None when there was nothing to compute)."""
     if kernel not in (None, *ROUTES):
@@ -102,6 +117,7 @@ def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster):
     k2, n = w.shape
     if k != k2:
         raise ValueError(f"x [{m},{k}] does not multiply W [{k2},{n}]")
+    n_cols = check_n_cols(n_cols, n)
     for i, x in enumerate(xs):
         check_operand(f"x{i}", x, 2)
         if x.shape != xs[0].shape or x.dtype != xs[0].dtype:
@@ -134,13 +150,14 @@ def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster):
         lib, fn = _fn("perturbed_matmul_tc", "pmtc", _TC_ARGTYPES)
         err = fn(len(xs), cluster or tc_cluster(len(xs), m),
                  xs[0].data_ptr(), x1, w.data_ptr(),
-                 ys[0].data_ptr(), y1, m, k, n, _DTYPE_CODE[out_dtype], seed,
+                 ys[0].data_ptr(), y1, m, k, n, n_cols, _DTYPE_CODE[out_dtype],
+                 seed,
                  amps[0], amp1, stream)
         error_string = lib.pmtc_error_string
     else:
         lib, fn = _fn("perturbed_matmul", "pm", _ARGTYPES)
         err = fn(len(xs), xs[0].data_ptr(), x1, w.data_ptr(),
-                 ys[0].data_ptr(), y1, m, k, n, _DTYPE_CODE[xs[0].dtype],
+                 ys[0].data_ptr(), y1, m, k, n, n_cols, _DTYPE_CODE[xs[0].dtype],
                  _DTYPE_CODE[w.dtype], _DTYPE_CODE[out_dtype], seed,
                  amps[0], amp1, stream)
         error_string = lib.pm_error_string
@@ -158,22 +175,24 @@ def _count(wrapper, which):
 
 
 def perturbed_matmul(x, w, lseed: int, *, amp: float, out_dtype=None,
-                     kernel=None, cluster=None):
-    """y = x @ (W + amp·S) for x [M,K], W [K,N] on the card.  ``kernel``
-    (``"tc"``/``"simt"``) overrides ``route`` and ``cluster`` (1, 2, 4)
-    the tensor-core kernel's cluster size, for comparisons."""
+                     kernel=None, cluster=None, n_cols=None):
+    """y = x @ (W + amp·S) for x [M,K], W [K,N] on the card, S indexed
+    with row stride ``n_cols`` (None: N).  ``kernel`` (``"tc"``/``"simt"``)
+    overrides ``route`` and ``cluster`` (1, 2, 4) the tensor-core kernel's
+    cluster size, for comparisons."""
     ys, which = _launch((x,), w, lseed, (float(amp),), out_dtype, kernel,
-                        cluster)
+                        cluster, n_cols)
     _count(perturbed_matmul, which)
     return ys[0]
 
 
 def perturbed_matmul_pair(xp, xm, w, lseed: int, *, dtheta: float,
-                          out_dtype=None, kernel=None, cluster=None):
+                          out_dtype=None, kernel=None, cluster=None,
+                          n_cols=None):
     """(xp @ (W + Δθ·S), xm @ (W − Δθ·S)) in one pass over W."""
     ys, which = _launch((xp, xm), w, lseed,
                         (float(dtheta), -float(dtheta)), out_dtype, kernel,
-                        cluster)
+                        cluster, n_cols)
     _count(perturbed_matmul_pair, which)
     return ys[0], ys[1]
 

@@ -1,5 +1,5 @@
-"""Multi-pod dry run: every (arch × shape × mesh) cell of the dense
-family, counted on fake ranks with nothing allocated.
+"""Multi-pod dry run: every (arch × shape × mesh) cell, counted on fake
+ranks with nothing allocated.
 
 The twin of the reference's ``launch/dryrun.py``, which lowers and
 compiles each cell for 512 virtual devices.  Here each cell runs in a
@@ -29,8 +29,11 @@ reference donates params (and the cache), the updated params are
 counted as written over the donated inputs: their allocations are left
 out of the peak, and ``alias_bytes`` reports them.
 
-Families outside the dense cut (MoE, MLA, the recurrent ones) are
-reported as skipped, naming ROADMAP A15b; they are not failures.
+Every family runs: the dense decoders, MoE (experts over "expert"), MLA
+(latent caches over "kvseq") and the recurrent ones (states over
+(batch, heads)).  Only what the reference skips is skipped: ``long_500k``
+outside ``configs.LONG_CONTEXT_OK`` (``configs.runnable_cells``).  The
+fake tensors lie on the card unless ``--device cpu`` asks for the CPU.
 Output goes to ``artifacts/dryrun_torch/``::
 
     python -m repro_torch.launch.dryrun --arch qwen3-14b [--both-meshes]
@@ -49,7 +52,8 @@ import weakref
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, runnable_cells
+from repro_torch.configs import (ARCH_IDS, LONG_CONTEXT_OK, SHAPES,
+                                get_config, runnable_cells)
 from repro_torch.core import MGDConfig, build_mgd_step, mgd_init
 from repro_torch.core.utils import (tensors_of, tree_flatten, tree_leaves,
                                     tree_unflatten)
@@ -58,7 +62,7 @@ from repro_torch.launch import specs
 from repro_torch.launch.comm_bytes import CollectiveBytes
 from repro_torch.launch.op_cost import OpCost
 from repro_torch.models import (init_cache, model_decode, model_loss,
-                                model_prefill, supports_fused_probe)
+                                model_prefill)
 
 OUT_DIR = "artifacts/dryrun_torch"
 CELL_TIMEOUT_S = 7200       # a cell's process (prefill_32k of qwen2-72b is
@@ -119,12 +123,6 @@ def model_flops(cfg, shape, kind: str, n_forwards: int) -> float:
                 d_attn = cfg.n_heads * cfg.head_dim
             flops += attn_layers * b * s * d_attn * 2.0 * 2.0
     return flops * n_forwards
-
-
-def in_cut(cfg) -> bool:
-    """The dense family: the archs whose step runs sharded in this
-    port."""
-    return supports_fused_probe(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -312,14 +310,12 @@ def _path(out_dir, arch, shape_name, multi_pod, tag):
 
 
 def skipped_record(arch, shape_name, multi_pod, tag=""):
-    cfg = get_config(arch)
     return {"arch": arch, "shape": shape_name,
             "kind": SHAPES[shape_name].kind, "multi_pod": multi_pod,
             "chips": 512 if multi_pod else 256, "tag": tag,
-            "skipped": (f"the {cfg.family!r} family"
-                        f"{' with MLA' if cfg.use_mla else ''}"
-                        f"{' with MoE' if cfg.n_experts else ''} does not "
-                        f"run on a mesh yet (ROADMAP A15b)")}
+            "skipped": (f"{shape_name} is for the sub-quadratic archs "
+                        f"{sorted(LONG_CONTEXT_OK)} (the reference's "
+                        f"runnable cells)")}
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -334,7 +330,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    if not in_cut(cfg):
+    if (arch, shape_name, True) not in runnable_cells():
         rec = skipped_record(arch, shape_name, multi_pod, tag)
         _write(rec, out_dir, arch, shape_name, multi_pod, tag)
         return rec
@@ -434,6 +430,7 @@ def cell_in_process(arch, shape, multi_pod, **kw):
 
 
 def main(argv=None):
+    from repro_torch.launch.mesh import _device_type
     ap = argparse.ArgumentParser(description="multi-pod dry run")
     ap.add_argument("--arch", default=None, help="arch id (default: all)")
     ap.add_argument("--shape", default=None, help="shape name (default: all)")
@@ -445,7 +442,8 @@ def main(argv=None):
     ap.add_argument("--rules", default=None,
                     choices=[None, "pure_dp", "dp_fsdp", "moe_ep"])
     ap.add_argument("--device", default=None, choices=[None, "cpu", "cuda"],
-                    help="fake tensors' device (default: cuda if present)")
+                    help="fake tensors' device (default: the card; "
+                         "without one, pass --device cpu)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--cell", action="store_true",
                     help="run exactly one cell in this process")
@@ -462,15 +460,10 @@ def main(argv=None):
     if args.shape:
         cells = [(a, s) for a, s in cells if s == args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    failures, n_run, n_skip = [], 0, 0
+    _device_type(args.device)      # no card and no --device cpu: raise here
+    failures, n_run = [], 0
     for arch, shape in cells:
         for mp in meshes:
-            if not in_cut(get_config(arch)):
-                rec = skipped_record(arch, shape, mp, args.tag)
-                _write(rec, args.out, arch, shape, mp, args.tag)
-                print(f"[dryrun] skip {arch} × {shape}: {rec['skipped']}")
-                n_skip += 1
-                continue
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--cell", "--arch", arch, "--shape", shape,
                    "--out", args.out, "--mgd-mode", args.mgd_mode,
@@ -491,7 +484,7 @@ def main(argv=None):
         for f in failures:
             print("  ", f)
         raise SystemExit(1)
-    print(f"\nall {n_run} cells ran clean; {n_skip} skipped (A15b)")
+    print(f"\nall {n_run} cells ran clean")
 
 
 if __name__ == "__main__":

@@ -20,14 +20,15 @@ axis (``distributed.pipeline``).  Both functions need a
 """
 from __future__ import annotations
 
-import torch
 import torch.distributed as dist
 
 
 def _device_type(device_type=None) -> str:
-    if device_type is not None:
-        return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The mesh's device type: ``device_type``, or the card
+    (``device.resolve_device``, which raises without one: a mesh on the
+    CPU is asked for with ``device_type="cpu"``)."""
+    from repro_torch.device import resolve_device
+    return resolve_device(device_type).type
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type=None):

@@ -160,7 +160,7 @@ def decode_attention(
     Scores and probabilities are f32; positions ≥ ``length`` (a host int
     or a 0-d tensor) are masked with ``NEG_INF``.
 
-    A cache sharded along its sequence (``sharding.decode_per_shard``)
+    A cache sharded along its sequence (``sharding.seq_per_shard``)
     passes the block's first position as ``seq_offset`` and
     ``combine(x, op)``, the reduction (``"max"``/``"sum"``) over the
     sequence shards: the softmax is then taken flash-decoding style,

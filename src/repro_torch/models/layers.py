@@ -16,6 +16,16 @@ never exists in device memory; an antithetic central pair (signs
 O(d) and take a materialized θ̃.  Perturbable ops take and return a tuple
 of activation streams, one per probe sign, plus the leaf-id subtree that
 anchors every leaf to the global hash.
+
+On a DeviceMesh a weight is a DTensor and its kernel runs on the local
+shard: the shard's offset (r0, c0) folds into the seed (r0·N + c0) and the
+leaf's N is the signs' row stride (``n_cols``), so every sign is the
+unsharded one.  The streams are placed as the shard needs
+(``_shard_product``): over a mesh dim that splits the streams' rows (the
+batch), W's block is gathered, as FSDP gathers it; else a column shard
+takes the streams whole over its mesh dim and gives its columns, and a
+row shard takes the streams' matching block of their last dim and gives
+a partial sum (tensor parallelism: no weight is gathered).
 """
 from __future__ import annotations
 
@@ -136,11 +146,81 @@ def _stream_offset(layer: int, nelem: int) -> int:
 
 def pleaf(leaf, leaf_id, probe, *, layer=None):
     """Per-stream perturbed values of a non-matmul leaf (or its layer
-    slice), in the materializing optimizer's float order."""
+    slice), in the materializing optimizer's float order; a DTensor leaf's
+    θ̃ is formed on its local shard."""
     offset = 0 if layer is None else _stream_offset(layer, leaf.numel())
-    theta = probe.leaf_theta(leaf.shape, leaf.dtype, leaf_id, offset=offset,
-                             device=leaf.device)
+    theta = pert.leaf_theta(
+        leaf, pert.shifted_leaf_seed(probe.lseed(leaf_id), offset),
+        probe.ctx.dtheta)
     return tuple(pert.apply_signed(leaf, theta, s) for s in probe.ctx.signs)
+
+
+def _shard_product(xs, w):
+    """Streams and ``w`` [K, N] placed for a product shard by shard, and
+    the product's placements, mesh dim by mesh dim: where the streams'
+    rows (batch, sequence) are split, W's block over that dim is gathered
+    (FSDP) and the product keeps the rows' split; else where W is split
+    by columns the streams are whole and the product takes W's columns;
+    where W is split by rows (tensor parallelism) the streams take the
+    matching block of their last dim and the product is a partial sum;
+    elsewhere the streams keep their placement (a split of their last
+    dim is gathered)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.distributed.sharding import replicate, settle
+    xs = tuple(settle(replicate(x, w.device_mesh)) for x in xs)
+    last = xs[0].dim() - 1
+    want, want_w, out = [], [], []
+    for pw, px in zip(w.placements, xs[0].placements):
+        rows = isinstance(px, Shard) and px.dim != last
+        if rows or not isinstance(pw, Shard):
+            keep = rows or not isinstance(px, Shard)
+            want.append(px if keep else Replicate())
+            want_w.append(Replicate() if rows else pw)
+            out.append(want[-1])
+        elif pw.dim == 1:
+            want.append(Replicate())
+            want_w.append(pw)
+            out.append(Shard(last))
+        else:
+            want.append(Shard(last))
+            want_w.append(pw)
+            out.append(Partial())
+    xs = tuple(x.redistribute(x.device_mesh, want) for x in xs)
+    if tuple(want_w) != tuple(w.placements):
+        w = w.redistribute(w.device_mesh, want_w)
+    return xs, w, tuple(out)
+
+
+def _pmatmul(xs, w, lseed, ctx):
+    """The per-stream products xs @ (W ± θ̃), W's sign seed ``lseed``:
+    one pair-kernel launch for a central pair, else one a stream; on a
+    DTensor W the kernels take its local shard (``_shard_product``)."""
+    sharded = is_dtensor(w)
+    n_cols = None
+    if sharded:
+        from torch.distributed.tensor import DTensor
+        xs, w, out_pl = _shard_product(xs, w)
+        local_shape, offset = pert.shard_layout(w)
+        lseed = pert.shifted_leaf_seed(lseed, offset[0] * w.shape[1]
+                                       + offset[1])
+        n_cols = w.shape[1]
+        mesh, shape = w.device_mesh, tuple(xs[0].shape[:-1]) + (w.shape[1],)
+        xs, w = tuple(x.to_local() for x in xs), w.to_local()
+    if ctx.is_pair:
+        ys = kops.perturbed_matmul_pair(
+            xs[0], xs[1], w, lseed, dtheta=ctx.dtheta, impl=ctx.impl,
+            n_cols=n_cols)
+    else:
+        ys = tuple(
+            kops.perturbed_matmul(
+                x, w, lseed, dtheta=ctx.dtheta, sign=s, impl=ctx.impl,
+                n_cols=n_cols)
+            for x, s in zip(xs, ctx.signs))
+    if not sharded:
+        return tuple(ys)
+    stride = tuple(torch.empty(shape, device="meta").stride())
+    return tuple(DTensor.from_local(y, mesh, out_pl, run_check=False,
+                                    shape=shape, stride=stride) for y in ys)
 
 
 def pdense(p, xs, ids, probe, *, layer=None):
@@ -149,20 +229,12 @@ def pdense(p, xs, ids, probe, *, layer=None):
     ``ids`` is the leaf-id subtree aligned with ``p``; ``layer`` the
     stacked-bank slice index (or None).
     """
-    ctx = probe.ctx
     w = p["w"]
     lseed = probe.lseed(ids["w"])
     if layer is not None:
         lseed = pert.shifted_leaf_seed(
             lseed, _stream_offset(layer, w.shape[-2] * w.shape[-1]))
-    if ctx.is_pair:
-        ys = kops.perturbed_matmul_pair(
-            xs[0], xs[1], w, lseed, dtheta=ctx.dtheta, impl=ctx.impl)
-    else:
-        ys = tuple(
-            kops.perturbed_matmul(
-                x, w, lseed, dtheta=ctx.dtheta, sign=s, impl=ctx.impl)
-            for x, s in zip(xs, ctx.signs))
+    ys = _pmatmul(xs, w, lseed, probe.ctx)
     if "b" in p:
         bs = pleaf(p["b"], ids["b"], probe, layer=layer)
         ys = tuple(y + b for y, b in zip(ys, bs))
@@ -187,11 +259,21 @@ def pembed(p, tokens, ids, probe):
     table = p["table"]
     d = table.shape[-1]
     tok = tokens.long()
+    if is_dtensor(tok):
+        from repro_torch.distributed.sharding import full
+        tok = full(tok)
     idx = (tok[..., None] * d
            + torch.arange(d, dtype=torch.int64, device=tok.device)) & MASK
     sgn = pert.rademacher_signs(probe.lseed(ids["table"]), idx)
     theta = (sgn * f32(probe.ctx.dtheta)).to(table.dtype)
-    rows = table[tok]
+    if is_dtensor(table):
+        # a vocabulary-sharded table: its rows gathered as ``embed`` does;
+        # θ̃ of those rows is the same on every rank
+        from repro_torch.distributed.sharding import replicate, settle
+        rows = settle(F.embedding(replicate(tok, table.device_mesh), table))
+        theta = replicate(theta, table.device_mesh)
+    else:
+        rows = table[tok]
     return tuple(pert.apply_signed(rows, theta, s) for s in probe.ctx.signs)
 
 

@@ -11,12 +11,18 @@ state [B, H, N, P], O(1) in sequence length.
 The conv is K shifted multiply-adds summed in f32 in tap order, the same
 helper for the full sequence and the decode step (no cuDNN, so no TF32).
 Δ = softplus is ``logaddexp(x, 0)``, jax's own form.
+
+On a DeviceMesh the SSD inputs and state are placed (batch, heads over
+"model") — the reference's (None, "batch", "model") state layout — and
+the chunked recurrence and the decode step run on each (batch, head)
+shard (``sharding.local_apply``), no communication.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_apply, shard
 from .layers import dense, dense_init, gen_device, rmsnorm, rmsnorm_init
 from .linear_attention import chunked_scalar_decay, step_scalar_decay
 
@@ -124,14 +130,20 @@ def mamba2_block(p, x, state, cfg, *, chunk: int = 64):
     """x: [B, S, d] → (x + mixer(x), new state)."""
     b, s, _ = x.shape
     d_inner, head_p, n_heads, n_state, conv_dim = _dims(cfg)
-    z, xbc, dt = _split_proj(p, rmsnorm(p["norm_in"], x), cfg)
+    z, xbc, dt = _split_proj(
+        p, shard(rmsnorm(p["norm_in"], x), "batch", None, None), cfg)
     xbc, conv_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                   state["conv"])
     x_ssm, bmat, cmat, log_a, v = _ssd_inputs(p, xbc, dt, cfg, x.dtype)
     shape = (b, s, n_heads, n_state)
-    y, ssd = chunked_scalar_decay(cmat[:, :, None, :].expand(shape),
-                                  bmat[:, :, None, :].expand(shape), v,
-                                  log_a, s0=state["ssd"], chunk=chunk)
+    heads = ("batch", None, "model", None)
+    y, ssd = local_apply(
+        lambda q, k, v, la, s0: chunked_scalar_decay(q, k, v, la, s0=s0,
+                                                     chunk=chunk),
+        shard(cmat[:, :, None, :].expand(shape), *heads),
+        shard(bmat[:, :, None, :].expand(shape), *heads), shard(v, *heads),
+        shard(log_a, *heads[:3]),
+        shard(state["ssd"], "batch", "model", None, None), like=(0, 4))
     return x + _ssd_out(p, y, x_ssm, z, x.dtype), {"conv": conv_tail,
                                                     "ssd": ssd}
 
@@ -147,8 +159,11 @@ def mamba2_block_step(p, x1, state, cfg):
     xbc = y_conv.to(xbc.dtype) + p["conv_b"].to(xbc.dtype)
     x_ssm, bvec, cvec, log_a, v = _ssd_inputs(p, xbc, dt, cfg, x1.dtype)
     shape = (b, n_heads, n_state)
-    y, ssd = step_scalar_decay(cvec[:, None, :].expand(shape),
-                               bvec[:, None, :].expand(shape), v, log_a,
-                               state["ssd"])
+    heads = ("batch", "model", None)
+    y, ssd = local_apply(
+        step_scalar_decay, shard(cvec[:, None, :].expand(shape), *heads),
+        shard(bvec[:, None, :].expand(shape), *heads), shard(v, *heads),
+        shard(log_a, *heads[:2]),
+        shard(state["ssd"], "batch", "model", None, None), like=(0, 4))
     return (x1 + _ssd_out(p, y, x_ssm, z, x1.dtype),
             {"conv": window[:, 1:, :], "ssd": ssd})

@@ -13,13 +13,24 @@ decoupled-RoPE key k_rope are cached.  Two forms:
 The two forms agree (``tests/test_torch_mla.py``).  ``length`` is a host
 int; the cache update writes the new token's entries in place at
 ``length − 1``.
+
+On a DeviceMesh the expand form attends per (batch, head) shard
+(``sharding.per_shard``); the latent caches lie (None, "batch", "kvseq")
+as the reference places them, the update writes on the shard that holds
+the position (``sharding.write_at``), and the absorbed decode attends to
+each rank's block of the sequence and combines the blocks' softmax
+(``sharding.seq_per_shard``), flash-decoding style.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
-from repro_torch.core.utils import f32
+from repro_torch.core.utils import f32, is_dtensor
+from repro_torch.distributed.sharding import (per_shard, seq_per_shard,
+                                              shard, write_at)
 from .attention import NEG_INF, chunked_causal_attention
 from .layers import dense, dense_init, full_f32_matmul, rmsnorm, rmsnorm_init
 from .rope import apply_rope
@@ -91,8 +102,14 @@ def mla_attention(p, x, positions, cfg, *, q_block=512, kv_block=512,
     k_nope, v = kv[..., :dn], kv[..., dn:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
-    attn = chunked_causal_attention(q, k, v, q_block=q_block,
-                                    kv_block=kv_block, impl=impl)
+    q, k, v = (shard(t, "batch", None, "model", None) for t in (q, k, v))
+
+    def attend(q, k, v):
+        return chunked_causal_attention(q, k, v, q_block=q_block,
+                                        kv_block=kv_block, impl=impl)
+
+    # under a mesh each (batch, head) shard attends on its own rank
+    attn = per_shard(attend, q, k, v)
     y = dense(p["wo"], attn.reshape(b, s, h * dv))
     return y, (c_kv, k_rope[:, :, 0, :])
 
@@ -117,21 +134,43 @@ def mla_decode(p, x1, cache, length: int, cfg):
     q_nope, q_rope = _queries(p, x1, cfg)
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)         # [B,1,H,dr]
     w_uk, w_uv = _absorb_weights(p, cfg)
-    c32 = c_cache.float()
     with full_f32_matmul():
         # fold W_UK into the query: q_eff [B,H,r]
         q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
                              w_uk.float())
-        scores = (torch.einsum("bhr,bsr->bhs", q_eff, c32)
-                  + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
-                                 r_cache.float())
-                  ) / f32(np.sqrt(dn + dr))
-        idx = torch.arange(c_cache.shape[1], device=c_cache.device)
-        scores = torch.where(idx[None, None, :] < length, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhs,bsr->bhr", probs, c32)
+        q_r = q_rope[:, 0].float()
+        attend = functools.partial(_latent_attend,
+                                   root=f32(np.sqrt(dn + dr)))
+        if is_dtensor(c_cache):
+            ctx = seq_per_shard(attend, (q_eff, q_r), (c_cache, r_cache),
+                                length, tuple(q_eff.shape))
+        else:
+            ctx = attend(q_eff, q_r, c_cache, r_cache, length)
         attn = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float())
     return dense(p["wo"], attn.reshape(b, 1, -1).to(x1.dtype))
+
+
+def _latent_attend(q_eff, q_rope, c_cache, r_cache, length, *, root,
+                   seq_offset: int = 0, combine=None):
+    """The absorbed form's attention against the latent caches, f32 →
+    ctx [B, H, r], the scores divided by ``root`` (√(dn + dr)).  A cache block of a sequence-sharded cache passes its
+    first position as ``seq_offset`` and ``combine(x, op)``, the reduction
+    over the blocks: the softmax then comes from the blocks' partial max,
+    sum and values (``sharding.seq_per_shard``)."""
+    c32 = c_cache.float()
+    scores = (torch.einsum("bhr,bsr->bhs", q_eff, c32)
+              + torch.einsum("bhd,bsd->bhs", q_rope, r_cache.float())
+              ) / root
+    idx = torch.arange(c_cache.shape[1], device=c_cache.device) + seq_offset
+    scores = torch.where(idx[None, None, :] < length, scores, NEG_INF)
+    if combine is None:
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhs,bsr->bhr", probs, c32)
+    m = combine(scores.amax(dim=-1), "max")
+    e = torch.exp(scores - m[..., None])
+    den = combine(e.sum(dim=-1), "sum")
+    return combine(torch.einsum("bhs,bsr->bhr", e, c32), "sum") \
+        / den[..., None]
 
 
 def mla_cache_update(p, x1, cache, length: int, cfg):
@@ -141,6 +180,6 @@ def mla_cache_update(p, x1, cache, length: int, cfg):
     pos = torch.full((b, 1), length - 1, dtype=torch.int32, device=x1.device)
     c_kv, k_rope = _kv_latent(p, x1, cfg, pos)
     c_cache, r_cache = cache
-    c_cache[:, length - 1] = c_kv[:, 0].to(c_cache.dtype)
-    r_cache[:, length - 1] = k_rope[:, 0, 0].to(r_cache.dtype)
+    write_at(c_cache, 1, length - 1, c_kv[:, 0])
+    write_at(r_cache, 1, length - 1, k_rope[:, 0, 0])
     return c_cache, r_cache

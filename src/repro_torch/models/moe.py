@@ -17,6 +17,17 @@ SiLU in f32.
 
 ``DropRecorder`` counts, while it is entered, the routings ``moe_apply``
 makes and the ones capacity drops (device tensors, read once at the end).
+
+On a DeviceMesh the tokens' groups are split over the batch axes, the
+router's logits are gathered whole over the experts (the router stays f32
+and every rank routes its own groups, ``sharding.local_apply``), and the
+expert tensors lie as the reference places them, experts over "expert"
+and groups over "batch" (its ``shard(expert_in, "expert", "batch", None,
+None)``): each rank dispatches its groups' tokens to its own block of
+experts (``_expert_dispatch``), runs its local expert banks, and
+combines their outputs into a partial sum over the expert axis
+(``_expert_combine``), reduced once: no rank forms another rank's
+experts' inputs or outputs.
 """
 from __future__ import annotations
 
@@ -25,7 +36,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.utils import f32
+from repro_torch.core.utils import f32, is_dtensor
+from repro_torch.distributed.sharding import (active_mesh, block_work,
+                                              full, local_apply, settle,
+                                              shard)
 from .layers import (dense, dense_init, full_f32_matmul, gen_device, glu_mlp,
                      glu_mlp_init)
 
@@ -103,9 +117,12 @@ def _gates(probs: torch.Tensor, k: int):
 
 
 def router_probs(p, xg):
-    """Softmax over experts of the f32 router logits, TF32 off."""
+    """Softmax over experts of the f32 router logits, TF32 off; under a
+    mesh the logits are first made whole over the experts."""
     with full_f32_matmul():
         logits = dense(p["router"], xg.float())
+    if active_mesh() is not None:
+        logits = shard(logits, "batch", None, None)
     return torch.softmax(logits, dim=-1)
 
 
@@ -143,22 +160,95 @@ def moe_apply(p, x, cfg, *, group_size: int = 256,
     c = capacity(gs, k, e, capacity_factor)
 
     xg = x.reshape(g, gs, d)
-    _, _, combine, keep = route(router_probs(p, xg), k, c)
+    if active_mesh() is not None:
+        xg = shard(xg, "batch", None, None)
+    combine, keep = local_apply(lambda pr: route(pr, k, c)[2:],
+                                router_probs(p, xg), like=(0, 0))
     for rec in _RECORDERS:
-        rec.calls.append((g * gs * k, keep.sum()))
+        rec.calls.append((g * gs * k, full(keep.sum())))
     dispatch = (combine > 0).to(x.dtype)
 
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    # expert tensors: experts over "expert", groups over "batch" (the
+    # reference's sites)
+    if is_dtensor(p["gate"]):
+        expert_in = _expert_dispatch(dispatch, xg, p["gate"])
+    else:
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
     h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["gate"])
                .float()).to(x.dtype)
     h = h * torch.einsum("egcd,edf->egcf", expert_in, p["up"])
+    h = shard(h, "expert", "batch", None, None)
     expert_out = torch.einsum("egcf,efd->egcd", h, p["down"])
-    y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+    if is_dtensor(expert_out):
+        y = _expert_combine(combine.to(x.dtype), expert_out)
+    else:
+        y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
     y = y.reshape(b, s, d)
 
     if "shared" in p:
         y = y + glu_mlp(p["shared"], x)
     return y
+
+
+def _expert_block(bank):
+    """(first expert, experts, mesh dims) of this rank's block of the
+    DTensor expert bank ``bank`` [E, ...]."""
+    from repro_torch.core.perturbations import shard_layout
+    local_shape, offset = shard_layout(bank)
+    dims = [i for i, pl in enumerate(bank.placements)
+            if pl.is_shard(0)]
+    return offset[0], local_shape[0], dims
+
+
+def _expert_dispatch(dispatch, xg, bank):
+    """``einsum("gsec,gsd->egcd", dispatch, xg)`` for this rank's experts
+    only, placed (experts as ``bank``, groups as ``xg``): each rank
+    gathers its own experts' tokens out of its groups."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    e0, n, dims = _expert_block(bank)
+    mesh = bank.device_mesh
+    xg, dispatch = settle(xg), settle(dispatch)
+    pl = tuple(Shard(0) if i in dims else
+               Shard(1) if xg.placements[i].is_shard(0) else Replicate()
+               for i in range(mesh.ndim))
+    want = tuple(Replicate() if i in dims else p
+                 for i, p in enumerate(xg.placements))
+    xg = xg.redistribute(mesh, want)
+    dispatch = dispatch.redistribute(mesh, want)
+    with block_work(mesh, pl):
+        local = torch.einsum("gsec,gsd->egcd",
+                             dispatch.to_local()[:, :, e0:e0 + n],
+                             xg.to_local())
+    g, _, e, c = dispatch.shape
+    shape = (e, g, c, xg.shape[-1])
+    stride = tuple(torch.empty(shape, device="meta").stride())
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _expert_combine(combine, expert_out):
+    """``einsum("gsec,egcd->gsd", combine, expert_out)`` from this rank's
+    block of experts: a partial sum over the expert axis, reduced."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    expert_out = settle(expert_out)
+    mesh = expert_out.device_mesh
+    e0, n, dims = _expert_block(expert_out)
+    want_out = tuple(Shard(0) if i in dims else
+                     Shard(1) if combine.placements[i].is_shard(0)
+                     else Replicate() for i in range(mesh.ndim))
+    expert_out = expert_out.redistribute(mesh, want_out)
+    want = tuple(Replicate() if i in dims else p
+                 for i, p in enumerate(settle(combine).placements))
+    combine = settle(combine).redistribute(mesh, want)
+    with block_work(mesh, want_out):
+        local = torch.einsum("gsec,egcd->gsd",
+                             combine.to_local()[:, :, e0:e0 + n],
+                             expert_out.to_local())
+    pl = tuple(Partial() if i in dims else p for i, p in enumerate(want))
+    shape = tuple(combine.shape[:2]) + (expert_out.shape[-1],)
+    stride = tuple(torch.empty(shape, device="meta").stride())
+    return settle(DTensor.from_local(local, mesh, pl, run_check=False,
+                                     shape=shape, stride=stride))
 
 
 def moe_apply_dense_ref(p, x, cfg):

@@ -10,12 +10,18 @@ gating, squared-ReLU channel mix (f32).
 State per layer: (att_x [B, d], ffn_x [B, d], wkv [B, H, dk, dv]), O(1) in
 sequence length.  The token-shift states hold the block's *normed*
 inputs, as the reference's do.
+
+On a DeviceMesh the recurrence's inputs and ``wkv`` are placed (batch,
+heads over "model") — the reference's (None, "batch", "model") state
+layout — and the chunked recurrence and the decode step run on each
+(batch, head) shard (``sharding.local_apply``), no communication.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_apply, shard
 from .layers import (dense, dense_init, gen_device, groupnorm_heads,
                      layernorm, layernorm_init)
 from .linear_attention import chunked_vector_decay, step_vector_decay
@@ -112,8 +118,13 @@ def rwkv6_time_mix(att, x, state, cfg, *, chunk: int = 32):
     v = dense(att["wv"], _mix(x, xs, att["mu_v"])).reshape(b, s, h, dh)
     g = dense(att["wg"], _mix(x, xs, att["mu_g"]))
     log_w = _log_decay(att, _mix(x, xs, att["mu_w"])).reshape(b, s, h, dh)
-    y, wkv = chunked_vector_decay(r, k, v, log_w, att["u"], s0=wkv,
-                                  chunk=chunk)
+    r, k, v, log_w = (shard(t, "batch", None, "model", None)
+                      for t in (r, k, v, log_w))
+    y, wkv = local_apply(
+        lambda r, k, v, lw, u, s0: chunked_vector_decay(
+            r, k, v, lw, u, s0=s0, chunk=chunk),
+        r, k, v, log_w, shard(att["u"], "model", None),
+        shard(wkv, "batch", "model", None, None), like=(0, 5))
     y = _gate(att, y.reshape(b, s, d), g, h)
     return dense(att["wo"], y), (x[:, -1, :], wkv)
 
@@ -126,13 +137,16 @@ def rwkv6_channel_mix(ffn, x, x_prev):
 
 
 def rwkv6_block(p, x, state, cfg, *, chunk: int = 32):
-    """Full block: x [B, S, d] → (x', new state dict)."""
+    """Full block: x [B, S, d] → (x', new state dict).  Under a mesh the
+    normed inputs lie whole along S and d on each batch shard, as the
+    token shift and the recurrence read them."""
     att_y, (att_x, wkv) = rwkv6_time_mix(
-        p["att"], layernorm(p["ln1"], x), (state["att_x"], state["wkv"]),
-        cfg, chunk=chunk)
+        p["att"], shard(layernorm(p["ln1"], x), "batch", None, None),
+        (state["att_x"], state["wkv"]), cfg, chunk=chunk)
     x = x + att_y
     ffn_y, ffn_x = rwkv6_channel_mix(
-        p["ffn"], layernorm(p["ln2"], x), state["ffn_x"])
+        p["ffn"], shard(layernorm(p["ln2"], x), "batch", None, None),
+        state["ffn_x"])
     return x + ffn_y, {"att_x": att_x, "ffn_x": ffn_x, "wkv": wkv}
 
 
@@ -150,7 +164,12 @@ def rwkv6_block_step(p, x1, state, cfg):
     v = dense(att["wv"], _mix(xn, xs, att["mu_v"])).reshape(b, h, dh)
     g = dense(att["wg"], _mix(xn, xs, att["mu_g"]))
     log_w = _log_decay(att, _mix(xn, xs, att["mu_w"])).reshape(b, h, dh)
-    y, wkv = step_vector_decay(r, k, v, log_w, att["u"], state["wkv"])
+    r, k, v, log_w = (shard(t, "batch", "model", None)
+                      for t in (r, k, v, log_w))
+    y, wkv = local_apply(step_vector_decay, r, k, v, log_w,
+                         shard(att["u"], "model", None),
+                         shard(state["wkv"], "batch", "model", None, None),
+                         like=(0, 5))
     y = _gate(att, y.reshape(b, d).to(x1.dtype), g, h)
     x1 = x1 + dense(att["wo"], y)
 

@@ -26,14 +26,17 @@ layers is a Python loop here, with a host-int layer index.  The
 reference's sharding annotations stand at its sites as
 ``distributed.sharding.shard``: a no-op without an active DeviceMesh;
 under one (``sharding.use_mesh``, params placed by
-``launch.specs.param_shardings``) the dense family's forward, loss,
-prefill and decode run on DTensors.  There, tensors made inside the
+``launch.specs.param_shardings``) every family's forward, loss,
+prefill and decode run on DTensors (MoE, MLA and the recurrent blocks
+place their own tensors: ``moe.py``, ``mla.py``, ``rwkv6.py``,
+``mamba2.py``), and the fused probe's kernels take the local shards
+(``layers.pdense``).  There, tensors made inside the
 model (positions, masks, constants) count as replicated
 (``sharding.mesh_ops``), heads are viewed only on shards that keep
 whole head groups (``_heads``), attention runs on each (batch, head)
 shard (``sharding.per_shard``), decode attention over a
 sequence-sharded cache combines its shards' softmax
-(``sharding.decode_per_shard``), and the loss is vocab-parallel
+(``sharding.seq_per_shard``), and the loss is vocab-parallel
 (``sharding.vocab_parallel_nll``).
 
 Dense GQA decoders (incl. the vlm/audio backbones) probe through the
@@ -64,12 +67,12 @@ from repro_torch.core.perturbations import leaf_seed
 from repro_torch.core.utils import (is_dtensor, leaf_id_tree, tree_flatten,
                                     tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (active_mesh,
-                                              decode_per_shard, full,
-                                              is_device_mesh, logical_spec,
-                                              mesh_ops, per_shard,
-                                              shard, vocab_parallel_nll,
-                                              write_at)
+from repro_torch.distributed.sharding import (active_mesh, copy_into,
+                                              full,
+                                              logical_spec, mesh_ops,
+                                              per_shard, seq_per_shard,
+                                              settle, shard,
+                                              vocab_parallel_nll, write_at)
 from .attention import chunked_causal_attention, decode_attention
 from .config import ArchConfig
 from .layers import (dense, dense_init, embed, embedding_init, glu_mlp,
@@ -86,22 +89,6 @@ from .rwkv6 import (rwkv6_block, rwkv6_block_init, rwkv6_block_step,
 _INIT_TAG = 0x7F4A
 _EMBED_LAYER = 0xFFFF   # generator key of the embedding/head parameters
 _SHARED_LAYER = 0xFFFE  # generator key of the hybrid's shared block
-
-
-def check_mesh_family(cfg: ArchConfig) -> None:
-    """Under an active DeviceMesh only the dense family runs sharded
-    (the dense GQA decoders and the vlm/audio backbones); the others
-    raise here, at the model's entry, not somewhere inside it."""
-    if active_mesh() is None or not is_device_mesh(active_mesh()):
-        return
-    if not supports_fused_probe(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family"
-            f"{' with MLA' if cfg.use_mla else ''}"
-            f"{' with MoE' if cfg.n_experts else ''} does not run on a "
-            f"device mesh yet — MoE's expert axis, MLA's latent caches and "
-            f"the recurrent states are ROADMAP A15b; the dense family "
-            f"runs sharded")
 
 
 def supports_fused_probe(cfg: ArchConfig) -> bool:
@@ -205,7 +192,8 @@ def attn_decode_step(p, x1, positions, kcache, vcache, length: int,
     write_at(kcache, 1, length - 1, k[:, 0])
     write_at(vcache, 1, length - 1, v[:, 0])
     if is_dtensor(kcache):
-        y = decode_per_shard(decode_attention, q, kcache, vcache, length)
+        y = seq_per_shard(decode_attention, (q,), (kcache, vcache), length,
+                          tuple(q.shape[:3]) + (vcache.shape[-1],))
     else:
         y = decode_attention(q, kcache, vcache, length)
     return dense(p["wo"], y.reshape(b, 1, -1)), kcache, vcache
@@ -418,8 +406,10 @@ def _layer_params(layers, layer: int):
 
 
 def _stack_states(states):
-    """Per-layer state dicts → one dict of tensors stacked on L."""
-    return {key: torch.stack([st[key] for st in states])
+    """Per-layer state dicts → one dict of tensors stacked on L (on a
+    mesh each with its pending reductions done, so decode can write
+    into it)."""
+    return {key: torch.stack([settle(st[key]) for st in states])
             for key in states[0]}
 
 
@@ -472,7 +462,6 @@ def model_forward(params, cfg: ArchConfig, batch, *, return_state=False,
     stacked on the blocks, "attn_kv": (k, v) [G, B, S, KVH, dh]}``.  A
     recurrent model starts from ``state`` (that structure; zeros when
     None)."""
-    check_mesh_family(cfg)
     with mesh_ops():
         return _model_forward(params, cfg, batch, return_state, state)
 
@@ -615,7 +604,7 @@ def model_forward_perturbed(params, cfg: ArchConfig, batch, probe):
         if cfg.n_codebooks:
             tokens = _codebook_ids(cfg, tokens)
         if tables is not None:
-            xs = tuple(t[tokens.long()] for t in tables)
+            xs = tuple(embed({"table": t}, tokens) for t in tables)
         else:
             xs = pembed(emb["tok"], tokens, eids["tok"], probe)
         if cfg.n_codebooks:
@@ -649,9 +638,10 @@ def model_probe_costs(params, cfg: ArchConfig, batch, probe):
     ``model_loss``; their update still runs in the window-update kernel.
     """
     if supports_fused_probe(cfg):
-        logits = model_forward_perturbed(params, cfg, batch, probe)
-        return torch.stack(
-            [_loss_from_logits(lg, batch["labels"]) for lg in logits])
+        with mesh_ops():
+            logits = model_forward_perturbed(params, cfg, batch, probe)
+            return torch.stack([full(_loss_from_logits(lg, batch["labels"]))
+                                for lg in logits])
     costs = []
     for sign in probe.ctx.signs:
         p_s = pert.perturbed_tree(
@@ -726,7 +716,6 @@ def model_prefill(params, cfg: ArchConfig, batch, max_len: int):
     ssm model's cache is its state alone, whatever ``max_len``.  Under a
     mesh the K/V cache is formed whole and placed (None, "batch",
     "kvseq") over the mesh."""
-    check_mesh_family(cfg)
     with mesh_ops():
         return _model_prefill(params, cfg, batch, max_len)
 
@@ -743,13 +732,18 @@ def _model_prefill(params, cfg: ArchConfig, batch, max_len: int):
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     if active_mesh() is not None:
-        # the dense family on a mesh: each K/V whole, placed (None,
-        # "batch", "kvseq"); its padding made shard by shard
-        return logits, {
-            **{key: shard(_pad_seq(state.to(cfg.torch_dtype), max_len),
-                          None, "batch", "kvseq")
-               for key, state in zip(_cache_keys(cfg), states)},
-            "length": length}
+        # on a mesh: each K/V (or latent) cache whole, placed (None,
+        # "batch", "kvseq"), its padding made shard by shard; the
+        # hybrid's Mamba-2 states as the forward placed them
+        cache = {}
+        if cfg.family == "hybrid":
+            cache["state"] = states["mamba"]
+            states = states["attn_kv"]
+        for key, state in zip(_cache_keys(cfg), states):
+            cache[key] = shard(_pad_seq(state.to(cfg.torch_dtype), max_len),
+                               None, "batch", "kvseq")
+        cache["length"] = length
+        return logits, cache
     cache = init_cache(cfg, b, max_len, device=logits.device)
     if cfg.family == "hybrid":
         cache["state"] = states["mamba"]
@@ -775,9 +769,9 @@ def _pad_seq(state, max_len: int):
 
 def _write_state(stacked, layer: int, new) -> None:
     """Layer ``layer``'s new recurrent state into the stacked cache, in
-    place (in the cache's dtype)."""
+    place (in the cache's dtype; laid out as the cache on a mesh)."""
     for key, t in new.items():
-        stacked[key][layer].copy_(t)
+        copy_into(stacked[key][layer], t)
 
 
 def _decode_recurrent(params, cfg: ArchConfig, x1, cache, pos, length):
@@ -811,7 +805,6 @@ def model_decode(params, cfg: ArchConfig, tokens, cache, embeds=None):
     stub-frontend ``embeds`` [B, 1, d].  Returns (logits [B, V] ([B, nq,
     V] with codebooks), cache): the cache is written in place (the
     caller's dict keeps its old ``length``; use the returned one)."""
-    check_mesh_family(cfg)
     with mesh_ops():
         return _model_decode(params, cfg, tokens, cache, embeds)
 

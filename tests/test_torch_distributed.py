@@ -23,6 +23,18 @@ Tolerances:
 * the dense family's smoke models (every dense arch id, f32) on the
   mesh: loss within 1e-5 relative, prefill logits and two decode steps
   within 1e-5 of the unsharded model;
+* MoE (llama4-scout), MLA (deepseek-v3) and the recurrent families
+  (rwkv6, zamba2), smoke models in f32 on the mesh (llama4-scout also
+  under ``MOE_EP_RULES``): loss, prefill logits and two decode steps
+  within 1e-5 relative (of max(|logit|, 1)), one unfused MGD step's C̃
+  within 1e-5 of the cost;
+* the fused step on (2, 4) and (4, 2) meshes (central, forward, replay;
+  weights split by columns and by rows): C̃ within 1e-5 of the cost of
+  the unsharded fused step's, bitwise the unfused step on the same mesh
+  (params and C̃), and the fused update given the same C̃ bitwise the
+  unsharded one; with every weight also split over the batch's axis
+  (``fsdp``), the product gathers W's block over that axis and keeps the
+  batch split;
 * pods as ranks against the reference's 4-device runs: C̃ 1e-6 and
   params 2e-4, the MLP's cross-framework tolerances (as
   ``tests/test_torch_probe_parallel.py``); pod 0's cost 1e-5;
@@ -251,13 +263,48 @@ def test_pods_as_ranks_take_param_specs_on_the_unfused_path(world4):
     "model"))]``: the first layer's W lives as column shards on the
     "model" ranks and the loss runs on DTensors; C̃ and the params track
     LocalMesh(pod=2)'s within the MLP's 1e-6 / 2e-4."""
-    ranks, local = world4[0]["pod2model2_param_specs"]
+    ranks, local = world4[0]["pod2model2_param_specs/False"]
     assert ranks["sharded_leaves"] >= 1 and local["sharded_leaves"] == 0
     np.testing.assert_allclose(ranks["c_tilde"], local["c_tilde"], rtol=0,
                                atol=CT_ATOL)
     np.testing.assert_allclose(torch.stack(ranks["params"]).numpy(),
                                torch.stack(local["params"]).numpy(), rtol=0,
                                atol=PARAM_ATOL)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "deepseek-v3-671b", "rwkv6-7b",
+                                  "zamba2-7b",
+                                  "llama4-scout-17b-a16e/moe_ep"])
+def test_moe_mla_and_recurrent_families_run_sharded(world8, arch):
+    rec = world8[0]["families"][arch]
+    assert rec["sharded"] > 0
+    for key in ("loss", "prefill", "decode", "c_tilde"):
+        assert rec[key] <= 1e-5, (key, rec[key])
+
+
+@pytest.mark.parametrize("case", [f"{m}/{k}" for m in ("2x4", "4x2")
+                                  for k in ("central", "forward", "replay")]
+                         + ["2x4/central_fsdp"])
+def test_fused_step_on_the_mesh(world8, case):
+    rec = world8[0]["fused"][case]
+    assert rec["cols"] > 0 and rec["rows"] > 0
+    assert rec.get("gathers", True)
+    assert rec["c_tilde"] <= 1e-5
+    assert rec["fused_is_unfused"]
+    assert rec.get("update_bitwise", True)
+
+
+def test_fused_pods_as_ranks_take_param_specs(world4):
+    """(pod 2, model 2), XOR, fused: the first layer's W as column shards
+    on the "model" ranks, its probes through the pair kernel's plain
+    version on the shards and its update through the window update's;
+    bitwise LocalMesh(pod=2)'s run, as the unsharded pods are."""
+    ranks, local = world4[0]["pod2model2_param_specs/True"]
+    assert ranks["sharded_leaves"] >= 1 and local["sharded_leaves"] == 0
+    assert ranks["c_tilde"] == local["c_tilde"]
+    assert all(torch.equal(a, b) for a, b in zip(ranks["params"],
+                                                 local["params"]))
 
 
 def test_pipeline_forward_exact(world4):

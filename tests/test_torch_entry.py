@@ -147,9 +147,9 @@ def test_cuda_impl_on_cpu_params_raises():
 def test_unported_algorithms_name_their_roadmap_item(algorithm, item):
     """The probe-parallel algorithms, unported until ROADMAP ``item``
     (A11, with A12's host boundary), are registered and build on the CPU;
-    parameter sharding (``param_specs=``, A15) builds on the unfused
-    path, and what is still unported — the fused probe on a
-    parameter-sharded mesh — raises naming its own item (A15b)."""
+    parameter sharding (``param_specs=``, A15) builds on the unfused path
+    and, since A15b, on the fused one, whose steps on a LocalMesh (where
+    nothing is placed) are the steps without it, bit for bit."""
     from repro_torch.hardware import simulated_chip_farm
 
     assert algorithm in rt.ALGORITHMS
@@ -159,11 +159,20 @@ def test_unported_algorithms_name_their_roadmap_item(algorithm, item):
                         device="cpu")
         rt.driver(algorithm, cfg, _loss, mesh=rt.LocalMesh(pod=2),
                   param_specs=[("w", ["model"])], device="cpu")
-        with pytest.raises(NotImplementedError, match="A15b"):
-            rt.driver(algorithm, cfg.replace(fused=True), _loss,
-                      mesh=rt.LocalMesh(pod=2), device="cpu",
-                      probe_fn=rt.make_mlp_probe_fn(),
-                      param_specs=[("w", ["model"])])
+        runs = []
+        for specs in ([("w", ["model"])], None):
+            fused = rt.driver(algorithm, cfg.replace(fused=True), _loss,
+                              mesh=rt.LocalMesh(pod=2), device="cpu",
+                              probe_fn=rt.make_mlp_probe_fn(),
+                              param_specs=specs)
+            p = rt.mlp_init(0, (49, 4, 4), device="cpu")
+            s = fused.init(p)
+            for i in range(3):
+                p, s, _ = fused.step(p, s, _nist_sampler()(i))
+            runs.append(p)
+        assert all(torch.equal(a, b) for a, b in zip(
+            rt.core.utils.tree_leaves(runs[0]),
+            rt.core.utils.tree_leaves(runs[1])))
     else:
         with simulated_chip_farm(2, (2, 2, 1), backend="serial") as farm:
             drv = rt.driver(algorithm, cfg, plant=farm, device="cpu")

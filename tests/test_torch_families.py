@@ -382,8 +382,8 @@ def test_signs_at_a_deep_layer_of_the_llama4_bank_equal_the_reference():
     per_layer = 16 * 5120 * 8192
     off = tlayers._stream_offset(47, per_layer)
     assert off == int(jlayers._stream_offset(47, per_layer))
-    got = tpert.rademacher_leaf((4, 8), torch.float32, 7, step=2, seed=0,
-                                dtheta=1e-2, offset=off)
+    got = tpert.leaf_theta(torch.empty((4, 8)), tpert.shifted_leaf_seed(
+        tpert.leaf_seed(0, 2, 7), off), 1e-2)
     want = jpert.rademacher_leaf((4, 8), jnp.float32, 7, step=2, seed=0,
                                  dtheta=1e-2, offset=off)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

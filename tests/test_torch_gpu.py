@@ -1278,3 +1278,61 @@ def test_fig6_fig7_fig8_cut_calls_card_equal_cpu(cuda_device):
     kernels.reset_launch_counts()
     assert calls(cuda_device) == calls(torch.device("cpu"))
     assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_cuda_kernels_take_n_cols(cuda_device, dtype):
+    """Every kernel on blocks of a [40, 58] leaf, the block's offset in
+    its seed and the leaf's N as ``n_cols``: the updates bitwise the
+    plain versions and the whole leaf's update there (blocks whose rows
+    split the kernels' 16-byte vectors take the strided scalar path, one
+    starts off a 16-byte boundary), the products within TOL of the plain
+    versions; a group of whole leaves and blocks launches twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n = 58
+    leaf = (torch.randn((40, n), generator=g, device=cuda_device)
+            * 0.1).to(dtype)
+    seeds = [pert.leaf_seed(3, t, 1) for t in range(3)]
+    coefs = torch.randn((3,), generator=g, device=cuda_device)
+    kw = dict(alpha=-0.5, dtheta=0.01)
+    whole = ops.mgd_update_window(leaf, seeds, coefs, **kw)
+    whole_sum = ops.mgd_update(leaf, seeds, coefs, eta=0.1, dtheta=0.01)
+    store = torch.empty((40 * 24 + 1,), dtype=dtype, device=cuda_device)
+    for r0, c0, kb, nb in [(0, 16, 40, 24), (8, 0, 16, n), (8, 13, 16, 13),
+                           (4, 40, 20, 16), (0, 8, 40, 24)]:
+        blk = leaf[r0:r0 + kb, c0:c0 + nb].contiguous()
+        if (r0, c0) == (0, 8):   # a view one element into its storage
+            blk = store[1:1 + kb * nb].view(kb, nb).copy_(blk)
+        bs = [pert.shifted_leaf_seed(s, r0 * n + c0) for s in seeds]
+        for fn, want in (
+                (lambda b, impl=None: ops.mgd_update_window(
+                    b, bs, coefs, n_cols=n, impl=impl, **kw), whole),
+                (lambda b, impl=None: ops.mgd_update(
+                    b, bs, coefs, eta=0.1, dtheta=0.01, n_cols=n,
+                    impl=impl), whole_sum)):
+            got = fn(blk)
+            assert torch.equal(got, fn(blk, "ref")), (r0, c0)
+            assert torch.equal(got, want[r0:r0 + kb, c0:c0 + nb]), (r0, c0)
+        x = torch.randn((12, kb), generator=g, device=cuda_device).to(dtype)
+        xm = torch.randn((12, kb), generator=g, device=cuda_device).to(dtype)
+        w = blk.clone()     # the tensor-core kernel's TMA needs alignment
+        y = ops.perturbed_matmul(x, w, bs[0], dtheta=0.01, n_cols=n)
+        r = ops.perturbed_matmul(x, w, bs[0], dtheta=0.01, n_cols=n,
+                                 impl="ref")
+        yp, ym = ops.perturbed_matmul_pair(x, xm, w, bs[0], dtheta=0.01,
+                                           n_cols=n)
+        rp, rm = ops.perturbed_matmul_pair(x, xm, w, bs[0], dtheta=0.01,
+                                           n_cols=n, impl="ref")
+        torch.cuda.synchronize()
+        for a, b in ((y, r), (yp, rp), (ym, rm)):
+            assert _rel_err(a, b) <= TOL[dtype], (r0, c0)
+    blk = leaf[:, 16:40].contiguous()
+    before = kernels.launch_counts()["mgd_update_window"]
+    got = ops.mgd_update_window_group(
+        [leaf, blk], [seeds, [pert.shifted_leaf_seed(s, 16) for s in seeds]],
+        coefs, n_cols=[None, n], **kw)
+    assert kernels.launch_counts()["mgd_update_window"] - before == 2
+    assert torch.equal(got[0], whole)
+    assert torch.equal(got[1], whole[:, 16:40])

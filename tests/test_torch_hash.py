@@ -117,8 +117,8 @@ def test_signs_only_and_rademacher_leaf_bitwise():
     off = 2 * 40 * 17
     want = jpert.rademacher_leaf((40, 17), jnp.float32, 5, step=jnp.int32(7),
                                  seed=jnp.uint32(1), dtheta=0.1, offset=off)
-    got = tpert.rademacher_leaf((40, 17), torch.float32, 5, step=7, seed=1,
-                                dtheta=0.1, offset=off)
+    lseed = tpert.shifted_leaf_seed(tpert.leaf_seed(1, 7, 5), off)
+    got = tpert.leaf_theta(torch.empty((40, 17)), lseed, 0.1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -158,7 +158,8 @@ def test_probe_lseed_and_theta_match_reference(step, tau_p):
     for lid in range(4):
         assert tp.lseed(lid) == int(np.asarray(jp.lseed(lid)))
     np.testing.assert_array_equal(
-        tp.leaf_theta((4,), torch.float32, 2).numpy(),
+        tpert.leaf_theta(torch.empty((4,)), tp.lseed(2),
+                         tctx.dtheta).numpy(),
         np.asarray(jp.leaf_theta((4,), jnp.float32, 2)))
     assert tctx.is_pair and tctx.n_streams == 2
 

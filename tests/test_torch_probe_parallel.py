@@ -527,11 +527,6 @@ def _central(**kw):
     (lambda: _pp(_central(), data_axis="data"), ValueError,
      "no data axis"),
     (lambda: _pp(_central(fused=True)), ValueError, "probe_fn"),
-    # param_specs= builds on the unfused path; the fused probe on a
-    # parameter-sharded mesh is still unported (A15b)
-    (lambda: _pp(_central(fused=True), probe_fn=rt.make_mlp_probe_fn(),
-                 param_specs=[("w", ["model"])]),
-     NotImplementedError, "A15"),
     (lambda: _pp(_central(), batch_specs=("data",)), ValueError,
      "batch_specs"),
     (lambda: rt.driver("probe_parallel", _central(), None,
@@ -542,6 +537,24 @@ def _central(**kw):
 def test_probe_parallel_validation(build, exc, match):
     with pytest.raises(exc, match=match):
         build()
+
+
+def test_fused_probe_parallel_takes_param_specs():
+    """``param_specs=`` with ``cfg.fused=True`` builds and steps (it once
+    raised naming ROADMAP A15b); on a LocalMesh nothing is placed, so its
+    steps are the fused k-pod steps without it, bit for bit (the sharded
+    run is held on the (pod 2, model 2) gloo world of
+    ``tests/test_torch_distributed.py``)."""
+    runs = []
+    for specs in ([("w", ["model"])], None):
+        drv = _pp(_central(fused=True), probe_fn=rt.make_mlp_probe_fn(),
+                  param_specs=specs)
+        p = _xor_params()
+        s = drv.init(p)
+        for _ in range(4):
+            p, s, _ = drv.step(p, s, _sharded_batch())
+        runs.append(p)
+    _assert_trees_equal(runs[0], runs[1])
 
 
 def test_local_mesh_reads_like_a_mesh():

@@ -426,10 +426,122 @@ def test_dryrun_prefill_and_decode_cells_on_a_fake_2x2_mesh(
         assert 0.5 < rec["counted_flops"] / rec["model_flops"] < 1.5
 
 
-def test_dryrun_reports_families_outside_the_cut_as_skipped(tmp_path):
+FAMILY_LAYERS = {"llama4-scout-17b-a16e": 1, "deepseek-v3-671b": 1,
+                 "rwkv6-7b": 1, "zamba2-7b": 3}
+
+FAMILY_CELL = r'''
+import sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.distributed.world import close_world, fake_world
+from repro_torch.launch import dryrun
+arch, layers, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dryrun.get_config = lambda a: configs.get_smoke_config(a).replace(
+    dtype="bfloat16", n_layers=layers)
+dryrun.SHAPES = dict(configs.SHAPES,
+                     train_4k=configs.ShapeSpec("train_4k", 16, 8, "train"))
+fake_world(8)
+mesh = init_device_mesh("cpu", (2, 2, 2),
+                        mesh_dim_names=("pod", "data", "model"))
+dryrun.run_cell(arch, "train_4k", multi_pod=True, mesh=mesh, out_dir=out,
+                device_type="cpu", verbose=False)
+close_world()
+'''
+
+
+@pytest.fixture(scope="module")
+def family_cells(tmp_path_factory):
+    """The smoke train cell of MoE, MLA and the recurrent families on a
+    fake (2, 2, 2) mesh, one process a cell, all four at once; beside
+    them, the reference's ``jaxpr_cost`` of the same steps."""
+    import os
+    import subprocess
+    import sys
+    out = tmp_path_factory.mktemp("family_cells")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-c", FAMILY_CELL, a, str(n), str(out)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a, n in FAMILY_LAYERS.items()}
+    from repro.api import driver as jdriver
+    from repro.core import mgd_init as jmgd_init
+    from repro.launch import dryrun as jdry
+    from repro.models import model_loss as jloss
+    want = {}
+    for arch, n in FAMILY_LAYERS.items():
+        jcfg = jconfigs.get_smoke_config(arch).replace(dtype="bfloat16",
+                                                       n_layers=n)
+        jmc = jdry.default_mgd_config("forward")
+        step = jdriver("discrete", jmc, lambda p, b: jloss(p, jcfg, b)).step
+        ap = jspecs.abstract_params(jcfg)
+        ast = jax.eval_shape(functools.partial(jmgd_init, cfg=jmc), ap)
+        ab = {k: jax.ShapeDtypeStruct((8, 16), jnp.int32)
+              for k in ("tokens", "labels")}
+        want[arch] = jcost.abstract_cost(step, ap, ast, ab)
+    errs = {}
+    for arch, p in procs.items():
+        _, err = p.communicate(timeout=600)
+        if p.returncode:
+            errs[arch] = err[-3000:]
+    return out, want, errs
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_LAYERS))
+def test_dryrun_train_cell_of_each_family_on_a_fake_2x2x2_mesh(
+        family_cells, arch):
+    """MoE (llama4-scout), MLA (deepseek-v3) and the recurrent families
+    (rwkv6, zamba2) run the dry run's train cell sharded: a record in the
+    reference's layout whose counted flops match the reference's
+    ``jaxpr_cost`` of the same step at
+    ``test_op_cost_flops_match_jaxpr_cost``'s tolerance (7%; one
+    attention block, S = 16)."""
     from repro_torch.launch import dryrun
-    rec = dryrun.run_cell("deepseek-v3-671b", "train_4k", multi_pod=False,
+    out, want, errs = family_cells
+    assert arch not in errs, errs.get(arch)
+    rec = dryrun.load_record(str(out), arch, "train_4k", True)
+    assert "skipped" not in rec and REF_KEYS <= set(rec)
+    assert rec["chips"] == 8 and rec["unknown_while"] == 0
+    assert rec["collective_bytes_per_device"] > 0
+    assert rec["memory"]["argument_bytes"] > 0
+    assert rec["memory"]["alias_bytes"] > 0
+    ref = want[arch]["flops"]
+    assert abs(rec["counted_flops"] - ref) / ref < 0.07
+
+
+def test_meshes_and_the_dry_run_need_the_card_or_the_cpu_asked_for(
+        fake_world, tmp_path, monkeypatch):
+    """Without a card ``make_host_mesh()`` and ``run_cell`` raise rather
+    than build gloo meshes on the CPU; ``device_type="cpu"`` asks for
+    them (``run_cell`` with it: the smoke cells' tests above)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fake_world(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_cell("qwen3-14b", "decode_32k", multi_pod=False,
+                        out_dir=str(tmp_path), verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--arch", "qwen3-14b", "--shape", "decode_32k",
+                     "--out", str(tmp_path)])
+    mesh = make_host_mesh(device_type="cpu")
+    assert mesh.device_type == "cpu" and tuple(mesh.shape) == (4,)
+
+
+def test_dryrun_reports_families_outside_the_cut_as_skipped(tmp_path):
+    """The one cut left is the reference's own: long_500k for the archs
+    outside ``LONG_CONTEXT_OK`` is reported as skipped (its runnable
+    cells); every family runs every other cell."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell("deepseek-v3-671b", "long_500k", multi_pod=False,
                           out_dir=str(tmp_path), verbose=False)
-    assert "A15b" in rec["skipped"]
-    assert dryrun.load_record(str(tmp_path), "deepseek-v3-671b", "train_4k",
-                              False)["skipped"] == rec["skipped"]
+    assert "runnable" in rec["skipped"] and "A15b" not in rec["skipped"]
+    assert dryrun.load_record(str(tmp_path), "deepseek-v3-671b",
+                              "long_500k", False) == rec
+    assert [(a, s) for a, s, ok in tconfigs.runnable_cells()
+            if not ok] == [
+        (a, "long_500k") for a in tconfigs.ARCH_IDS
+        if a not in tconfigs.LONG_CONTEXT_OK]
