@@ -301,7 +301,19 @@ Phases, each fatal on failure (nothing is caught):
    fused, whose probes materialize one θ ± θ̃ at a time: its unfused
    step's three trees would not fit), its peak memory printed.  Each
    family's unsharded step runs first and its C̃ and params are kept on
-   the host, so the mesh step need not share the card with them.
+   the host, so the mesh step need not share the card with them.  17d,
+   in 17b's process and on its mesh, the pieces of the four-card run
+   (``tests/torch_dist_worker.py cards_full``): 17d.1 the sharded init
+   (``model_init(..., shardings=)``) bitwise ``device_put`` of the whole
+   init, qwen2-72b at 2 layers under the default rules and llama4-scout
+   at 1 under ``MOE_EP_RULES``; 17d.2 the one-card witness of
+   ``tests/torch_witness.py`` (the model redrawn a part at a time)
+   bitwise qwen2-72b's whole-model fused steps at 2 layers: the cost at
+   θ₀, a central step (B2, B3) and a forward step (B1, B3), their probe
+   costs, C̃ and every updated leaf, the steps' launches counted into the
+   kernels line; 17d.3 llama4-scout's peak through its fused central
+   step at 1, 2 and 3 layers (above what the process held before), and
+   the deepest depth one card holds by the line through them.
 
 Phase 3 also prints the NIST7x7 sampler's ms a batch (batch 1): the
 samplers draw the reference's batches with ``core.rng``'s threefry in
@@ -4459,6 +4471,15 @@ def one_rank_mesh(torch, rt, kernels, card, dev, backend="nccl",
         print("phase 17c: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in out["17c"]["seconds"].items()),
             flush=True)
+        # 17d: the four-card run's pieces on one card
+        t_d = time.perf_counter()
+        out["17d"], slice_counts = sharded_slice(torch, rt, kernels, dev,
+                                                 mesh)
+        for k, v in slice_counts.items():
+            totals[k] += v
+        out["17d"]["seconds"] = time.perf_counter() - t_d
+        print(json.dumps({"phase17d": out["17d"]}), flush=True)
+        print(f"phase 17d: {out['17d']['seconds']:.1f} s", flush=True)
         # 17b.4: int8 compression, card against CPU
         t0 = time.perf_counter()
         on_card = comp.quantize_int8(g.to(dev), r.to(dev), key)
@@ -4709,6 +4730,125 @@ def families_on_mesh(torch, rt, dev, mesh):
         print(json.dumps({"phase17c3": {arch: out[arch]}}), flush=True)
         torch.cuda.empty_cache() if dev.type == "cuda" else None
     return out
+
+
+SLICE_INITS = (("qwen2-72b", 2, None), ("llama4-scout-17b-a16e", 1,
+                                         "moe_ep"))
+SLICE_WITNESS = ("qwen2-72b", 2)
+SLICE_PEAK_LAYERS = (1, 2, 3)   # llama4-scout's one-card peaks
+
+
+def sharded_slice(torch, rt, kernels, dev, mesh):
+    """Phase 17d: the sharded init bitwise ``device_put`` of the whole
+    init; the one-card witness (``tests/torch_witness.py``) bitwise the
+    whole-model fused steps, whose launches it returns; llama4-scout's
+    one-card peaks and the deepest depth one card holds."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_witness as tw
+    from repro_torch.core import perturbations as pert
+    from repro_torch.core.utils import tree_leaves, tree_map
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import default_mgd_config
+    cuda = dev.type == "cuda"
+    out, totals = {}, dict.fromkeys(SOURCES, 0)
+    # 17d.1
+    for arch, n_layers, rules in SLICE_INITS:
+        cfg = rt.get_config(arch).replace(n_layers=n_layers)
+        with shd.use_mesh(mesh, shd.RULE_SETS[rules] if rules else None):
+            sh = specs.param_shardings(cfg, mesh)
+            got = rt.model_init(cfg, 0, device=dev, shardings=sh)
+            want = shd.device_put(rt.model_init(cfg, 0, device=dev), sh)
+        same = all(tuple(a.placements) == tuple(b.placements)
+                   and torch.equal(a.to_local(), b.to_local())
+                   for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        del got, want
+        if not same:
+            fail(f"phase 17d.1 {arch}: the sharded init is not bitwise "
+                 f"device_put of the whole init")
+        out[f"init/{arch}"] = dict(layers=n_layers, rules=rules or "default",
+                                   bitwise=True)
+    # 17d.2
+    arch, n_layers = SLICE_WITNESS
+    cfg = rt.get_config(arch).replace(n_layers=n_layers)
+    params = rt.model_init(cfg, 0, device=dev)
+    batch = rt.lm_sampler(8, 64, cfg.vocab, seed=0, device=dev)(0)
+    if not torch.equal(tw.stream_cost(cfg, 0, batch, device=dev),
+                       rt.model_loss(params, cfg, batch)):
+        fail("phase 17d.2: the witness's cost at θ₀ is not the model's")
+    steps = {}
+    for mode, signs in (("central", (1.0, -1.0)), ("forward", (1.0,))):
+        mc = dataclasses.replace(default_mgd_config(mode), fused=True)
+        step = rt.build_mgd_step(lambda p, b: rt.model_loss(p, cfg, b), mc,
+                                 probe_fn=rt.make_transformer_probe_fn(cfg))
+        kernels.reset_launch_counts()
+        new, _, m = step(params, rt.mgd_init(params, mc), batch)
+        torch.cuda.synchronize() if cuda else None
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        probe = pert.Probe(0, mc.seed, pert.ProbeCtx(
+            signs=signs, dtheta=mc.dtheta, tau_p=mc.tau_p))
+        costs = tw.stream_probe(cfg, 0, batch, probe, device=dev)
+        ct = (0.5 * (costs[0] - costs[1]) if mode == "central" else
+              costs[0] - tw.stream_cost(cfg, 0, batch, device=dev))
+        same = bool(torch.equal(ct, m["c_tilde"]))
+        for part in ["embed"] + list(range(n_layers)):
+            want = (new["embed"] if part == "embed" else
+                    tree_map(lambda a: a[part], new["layers"]))
+            got = tw.redraw(cfg, 0, part, device=dev,
+                            updates=[(mc, 0, m["c_tilde"])])
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(want)))
+            del got, want             # want is a view into new's bank
+        kernels.reset_launch_counts()     # the witness's own launches
+        if not same:
+            fail(f"phase 17d.2 {mode}: the witness is not bitwise the "
+                 f"whole-model fused step")
+        if cuda and not all(counts[k] for k in (
+                "perturbed_matmul_pair" if mode == "central"
+                else "perturbed_matmul", "mgd_update_window")):
+            fail(f"phase 17d.2 {mode}: launches {counts}")
+        steps[mode] = dict(bitwise=True, launches=counts,
+                           c_tilde=float(m["c_tilde"]),
+                           cost=float(m["cost"]))
+        del new
+    out["witness"] = dict(arch=arch, layers=n_layers, steps=steps)
+    del params
+    # 17d.3: peaks above what the process already holds (17b-c's leftovers
+    # when it runs after them), so they read as a fresh process's
+    peaks = {}
+    cfg = rt.get_config("llama4-scout-17b-a16e")
+    mc = dataclasses.replace(default_mgd_config("central"), fused=True)
+    torch.cuda.empty_cache() if cuda else None
+    base = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    for n_layers in SLICE_PEAK_LAYERS:
+        c = cfg.replace(n_layers=n_layers)
+        torch.cuda.empty_cache() if cuda else None
+        p = rt.model_init(c, 0, device=dev)
+        b = rt.lm_sampler(8, 64, c.vocab, seed=0, device=dev)(0)
+        step = rt.build_mgd_step(lambda q, bb: rt.model_loss(q, c, bb), mc,
+                                 probe_fn=rt.make_transformer_probe_fn(c))
+        torch.cuda.reset_peak_memory_stats() if cuda else None
+        p, _, m = step(p, rt.mgd_init(p, mc), b)
+        torch.cuda.synchronize() if cuda else None
+        peaks[n_layers] = torch.cuda.max_memory_allocated() / 1e9 - base \
+            if cuda else 0.0
+        if not bool(torch.isfinite(m["c_tilde"])):
+            fail(f"phase 17d.3: llama4-scout at {n_layers} layers gave C̃ "
+                 f"{m['c_tilde']}")
+        del p, m
+    torch.cuda.empty_cache() if cuda else None
+    lo, hi = SLICE_PEAK_LAYERS[0], SLICE_PEAK_LAYERS[-1]
+    slope = (peaks[hi] - peaks[lo]) / (hi - lo)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9 \
+        if cuda else 0.0
+    one_card = (int((total - (peaks[lo] - lo * slope)) // slope)
+                if slope > 0 else None)
+    out["llama4_peaks"] = dict(peak_gb=peaks, held_before_gb=base,
+                               slope_gb_per_layer=slope, card_gb=total,
+                               one_card_layers=one_card)
+    return out, totals
 
 
 _CHILDREN = []

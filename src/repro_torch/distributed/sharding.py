@@ -600,6 +600,28 @@ def named_shardings(params_shape, rules, mesh):
                     param_specs(params_shape, rules, mesh))
 
 
+def from_block(block, sharding, shape):
+    """A DTensor of global ``shape`` under ``sharding`` (a
+    ``NamedSharding``) whose local shard is this rank's ``block``."""
+    from torch.distributed.tensor import DTensor
+    stride = tuple(torch.empty(shape, device="meta").stride())
+    return DTensor.from_local(block, sharding.mesh, sharding.placements,
+                              run_check=False, shape=tuple(shape),
+                              stride=stride)
+
+
+def local_block(x, sharding):
+    """The full tensor ``x``, present on every rank, placed under
+    ``sharding`` as ``place`` places it, but as a copy of this rank's
+    block alone, so nothing keeps ``x`` alive."""
+    from repro_torch.core.perturbations import local_layout
+    local_shape, offset = local_layout(tuple(x.shape), sharding.mesh,
+                                       sharding.placements)
+    block = x[tuple(slice(o, o + n) for o, n in zip(offset, local_shape))]
+    return from_block(block.clone(memory_format=torch.contiguous_format),
+                      sharding, x.shape)
+
+
 def device_put(tree, shardings):
     """Every leaf of ``tree`` placed under its ``NamedSharding`` (the
     reference's ``jax.device_put(tree, shardings)``)."""

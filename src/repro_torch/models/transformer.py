@@ -65,10 +65,10 @@ import torch
 from repro_torch.core import perturbations as pert
 from repro_torch.core.perturbations import leaf_seed
 from repro_torch.core.utils import (is_dtensor, leaf_id_tree, tree_flatten,
-                                    tree_map, tree_unflatten)
+                                    tree_leaves, tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (active_mesh, copy_into,
-                                              full,
+                                              from_block, full, local_block,
                                               logical_spec, mesh_ops,
                                               per_shard, seq_per_shard,
                                               settle, shard,
@@ -362,7 +362,25 @@ def _stack_init(cfg: ArchConfig):
     return block_init, cfg.n_layers
 
 
-def model_init(cfg: ArchConfig, seed: int, *, device=None):
+def init_part(cfg: ArchConfig, seed: int, part, *, device=None):
+    """One part of ``model_init``'s tree, drawn as ``model_init`` draws
+    it: stacked layer ``part`` (an int; that layer's leaves, unstacked),
+    ``"embed"`` (the embedding, final norm and head) or the hybrid's
+    ``"shared_attn"``.  A sharded init draws the model a part at a time,
+    and a check can redraw any part without holding the model."""
+    dev = _init_device(device)
+    dtype = cfg.torch_dtype
+    if part == "embed":
+        return _embed_init(_generator(seed, _EMBED_LAYER, dev), cfg, dtype,
+                           dev)
+    if part == "shared_attn":
+        return block_init(_generator(seed, _SHARED_LAYER, dev), cfg, dtype,
+                          dev)
+    init_one, _ = _stack_init(cfg)
+    return init_one(_generator(seed, int(part), dev), cfg, dtype, dev)
+
+
+def model_init(cfg: ArchConfig, seed: int, *, device=None, shardings=None):
     """Random params from ``seed`` on ``device`` (the card unless
     ``device="cpu"``), drawn there: stacked layer l from a generator keyed
     on (seed, l), the hybrid's shared block from a key of its own.  Stacked
@@ -370,18 +388,23 @@ def model_init(cfg: ArchConfig, seed: int, *, device=None):
     one layer.  The draws match neither the JAX package's threefry nor
     another device's; parity tests carry the reference's params with
     ``repro_torch.convert``.  ``device="meta"`` gives the tree's shapes and
-    dtypes, nothing drawn or allocated."""
+    dtypes, nothing drawn or allocated.
+
+    With ``shardings`` (a ``sharding.NamedSharding`` per leaf, e.g.
+    ``launch.specs.param_shardings``) every part is drawn whole on
+    ``device`` and only this rank's block of it kept: bitwise
+    ``sharding.device_put(model_init(cfg, seed, device=device),
+    shardings)``, at a peak of the rank's shards plus one part's draw."""
     dev = _init_device(device)
-    dtype = cfg.torch_dtype
-    params: Dict[str, Any] = {
-        "embed": _embed_init(_generator(seed, _EMBED_LAYER, dev), cfg, dtype,
-                             dev)}
-    init_one, n_layers = _stack_init(cfg)
-    leaves, treedef = tree_flatten(
-        init_one(_generator(seed, 0, dev), cfg, dtype, dev))
+    if shardings is not None:
+        return _sharded_init(cfg, seed, dev, shardings)
+    params: Dict[str, Any] = {"embed": init_part(cfg, seed, "embed",
+                                                 device=dev)}
+    _, n_layers = _stack_init(cfg)
+    leaves, treedef = tree_flatten(init_part(cfg, seed, 0, device=dev))
     if cfg.family == "hybrid":
-        params["shared_attn"] = block_init(
-            _generator(seed, _SHARED_LAYER, dev), cfg, dtype, dev)
+        params["shared_attn"] = init_part(cfg, seed, "shared_attn",
+                                          device=dev)
     if n_layers == 1:
         # the layer's leaves, viewed [1, ...]: one copy of a layer that may
         # be half the card (DeepSeek-V3's 23 GB)
@@ -392,12 +415,47 @@ def model_init(cfg: ArchConfig, seed: int, *, device=None):
     # on the meta device every copy is a no-op: the shapes are all there is
     for layer in range(n_layers if dev.type != "meta" else 0):
         if layer:
-            leaves = tree_flatten(init_one(_generator(seed, layer, dev),
-                                           cfg, dtype, dev))[0]
+            leaves = tree_flatten(init_part(cfg, seed, layer, device=dev))[0]
         for dst, src in zip(stacked, leaves):
             dst[layer].copy_(src)
         del leaves
     params["layers"] = tree_unflatten(treedef, stacked)
+    return params
+
+
+def _sharded_init(cfg: ArchConfig, seed: int, dev, shardings):
+    """``model_init`` under ``shardings``: the embedding (and the hybrid's
+    shared block) drawn whole and cut to this rank's blocks first, then
+    the stacked layers' local blocks allocated and filled one drawn layer
+    at a time (only the layers this rank holds a block of)."""
+    params: Dict[str, Any] = {}
+    for part in ("embed",) + (("shared_attn",) if cfg.family == "hybrid"
+                              else ()):
+        params[part] = tree_map(local_block,
+                                init_part(cfg, seed, part, device=dev),
+                                shardings[part])
+    _, n_layers = _stack_init(cfg)
+    metas, treedef = tree_flatten(init_part(cfg, seed, 0, device="meta"))
+    blocks = []
+    for meta, sh in zip(metas, tree_leaves(shardings["layers"])):
+        shape = (n_layers,) + tuple(meta.shape)
+        local_shape, offset = pert.local_layout(shape, sh.mesh,
+                                                sh.placements)
+        blocks.append((torch.empty(local_shape, dtype=meta.dtype,
+                                   device=dev), offset, shape, sh))
+    held = sorted({layer for buf, offset, _, _ in blocks
+                   for layer in range(offset[0], offset[0] + buf.shape[0])})
+    for layer in held:
+        leaves = tree_flatten(init_part(cfg, seed, layer, device=dev))[0]
+        for (buf, offset, _, _), leaf in zip(blocks, leaves):
+            i = layer - offset[0]
+            if 0 <= i < buf.shape[0]:
+                buf[i].copy_(leaf[tuple(
+                    slice(o, o + n) for o, n in zip(offset[1:],
+                                                    buf.shape[1:]))])
+        del leaves
+    params["layers"] = tree_unflatten(treedef, [
+        from_block(buf, sh, shape) for buf, _, shape, sh in blocks])
     return params
 
 

@@ -5,7 +5,9 @@
 * without a card, entry points that are not asked for the CPU raise
   instead of falling back;
 * ``repro_torch`` imports neither ``jax`` nor ``repro`` (AST check over
-  every module and ``chip_smoke.py``), and imports without ``nvcc``.
+  every module, ``chip_smoke.py`` and the four-card worker and witness
+  ``tests/torch_dist_worker.py``, ``tests/torch_witness.py``), and
+  imports without ``nvcc``.
 """
 import ast
 import os
@@ -235,7 +237,9 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_never_imports_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py",
+        REPO / "tests" / "torch_witness.py"]
     assert len(files) > 20
     for path in files:
         roots = set(_imported_roots(path))

@@ -1336,3 +1336,36 @@ def test_cuda_kernels_take_n_cols(cuda_device, dtype):
     assert kernels.launch_counts()["mgd_update_window"] - before == 2
     assert torch.equal(got[0], whole)
     assert torch.equal(got[1], whole[:, 16:40])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,rules", [
+    ("qwen2-72b", None), ("llama4-scout-17b-a16e", "moe_ep")])
+def test_sharded_init_on_a_one_rank_mesh_is_bitwise(cuda_device, tmp_path,
+                                                    arch, rules):
+    """``model_init(..., shardings=)`` on the card, a one-rank NCCL world
+    and (1, 1) mesh: bitwise ``device_put`` of the whole init (smoke
+    configs in bf16, ``fsdp=True`` as the full configs have)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    import repro_torch as rt
+    from repro_torch.core.utils import tree_leaves
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.world import close_world, init_world
+    from repro_torch.launch import specs
+    cfg = rt.get_smoke_config(arch).replace(dtype="bfloat16", fsdp=True,
+                                            n_layers=3)
+    init_world("nccl", 0, 1, str(tmp_path / "store"))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with shd.use_mesh(mesh, shd.RULE_SETS[rules] if rules else None):
+            sh = specs.param_shardings(cfg, mesh)
+            got = rt.model_init(cfg, 4, device=cuda_device, shardings=sh)
+            want = shd.device_put(rt.model_init(cfg, 4, device=cuda_device),
+                                  sh)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert a.to_local().device.type == "cuda"
+            assert tuple(a.placements) == tuple(b.placements)
+            assert torch.equal(a.to_local(), b.to_local())
+    finally:
+        close_world()
