@@ -148,6 +148,16 @@ def active_mesh():
     return _ACTIVE_MESH
 
 
+def fsdp_axes(mesh=None):
+    """The mesh axes the active rules give to "fsdp" (the weights' FSDP
+    split) that ``mesh`` (default: the active one) has."""
+    mesh = mesh if mesh is not None else _ACTIVE_MESH
+    if mesh is None:
+        return ()
+    names, _ = mesh_axes(mesh)
+    return tuple(a for a in _ACTIVE_RULES.get("fsdp", ()) if a in names)
+
+
 def is_device_mesh(mesh) -> bool:
     """True for a ``torch.distributed`` DeviceMesh (the kind that places
     tensors), False for an arithmetic stand-in."""

@@ -21,11 +21,12 @@ On a DeviceMesh a weight is a DTensor and its kernel runs on the local
 shard: the shard's offset (r0, c0) folds into the seed (r0·N + c0) and the
 leaf's N is the signs' row stride (``n_cols``), so every sign is the
 unsharded one.  The streams are placed as the shard needs
-(``_shard_product``): over a mesh dim that splits the streams' rows (the
-batch), W's block is gathered, as FSDP gathers it; else a column shard
-takes the streams whole over its mesh dim and gives its columns, and a
-row shard takes the streams' matching block of their last dim and gives
-a partial sum (tensor parallelism: no weight is gathered).
+(``_shard_product``, which ``dense`` shares on a DTensor weight): over a
+mesh dim that splits the streams' rows (the batch), or that the active
+rules give to "fsdp", W's block is gathered, as FSDP gathers it; else a
+column shard takes the streams whole over its mesh dim and gives its
+columns, and a row shard takes the streams' matching block of their last
+dim and gives a partial sum (tensor parallelism: no weight is gathered).
 """
 from __future__ import annotations
 
@@ -62,7 +63,8 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias=False,
 
 
 def dense(p, x):
-    y = x @ p["w"]
+    w = p["w"]
+    y = _sharded_matmul(x, w) if is_dtensor(w) else x @ w
     if "b" in p:
         y = y + p["b"]
     return y
@@ -158,24 +160,29 @@ def pleaf(leaf, leaf_id, probe, *, layer=None):
 def _shard_product(xs, w):
     """Streams and ``w`` [K, N] placed for a product shard by shard, and
     the product's placements, mesh dim by mesh dim: where the streams'
-    rows (batch, sequence) are split, W's block over that dim is gathered
-    (FSDP) and the product keeps the rows' split; else where W is split
-    by columns the streams are whole and the product takes W's columns;
-    where W is split by rows (tensor parallelism) the streams take the
-    matching block of their last dim and the product is a partial sum;
-    elsewhere the streams keep their placement (a split of their last
-    dim is gathered)."""
+    rows (batch, sequence) are split, or the active rules give the mesh
+    dim to "fsdp" (``MOE_EP_RULES`` splits the dense weights' rows over
+    "model" so), W's block over that dim is gathered (FSDP, as the
+    reference's program gathers it) and the product keeps the streams'
+    rows' placement; else where W is split by columns the streams are
+    whole and the product takes W's columns; where W is split by rows
+    (tensor parallelism) the streams take the matching block of their
+    last dim and the product is a partial sum; elsewhere the streams keep
+    their placement (a split of their last dim is gathered)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from repro_torch.distributed.sharding import replicate, settle
+    from repro_torch.distributed.sharding import fsdp_axes, replicate, settle
     xs = tuple(settle(replicate(x, w.device_mesh)) for x in xs)
     last = xs[0].dim() - 1
+    fsdp = fsdp_axes(w.device_mesh)
     want, want_w, out = [], [], []
-    for pw, px in zip(w.placements, xs[0].placements):
+    names = w.device_mesh.mesh_dim_names or (None,) * w.device_mesh.ndim
+    for name, pw, px in zip(names, w.placements, xs[0].placements):
         rows = isinstance(px, Shard) and px.dim != last
-        if rows or not isinstance(pw, Shard):
+        gather = rows or name in fsdp
+        if gather or not isinstance(pw, Shard):
             keep = rows or not isinstance(px, Shard)
             want.append(px if keep else Replicate())
-            want_w.append(Replicate() if rows else pw)
+            want_w.append(Replicate() if gather else pw)
             out.append(want[-1])
         elif pw.dim == 1:
             want.append(Replicate())
@@ -191,6 +198,31 @@ def _shard_product(xs, w):
     return xs, w, tuple(out)
 
 
+def _from_local(y, mesh, placements, shape):
+    """The local product ``y`` as a DTensor of global ``shape``."""
+    from torch.distributed.tensor import DTensor
+    stride = tuple(torch.empty(shape, device="meta").stride())
+    return DTensor.from_local(y, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _sharded_matmul(x, w):
+    """``x @ w`` for a DTensor ``w`` [K, N], placed by ``_shard_product``
+    as the fused path places its products, so the unfused and fused steps
+    move and reduce the same blocks.  The local product stands for one
+    block of the global one a split (or partial) mesh dim
+    (``launch.op_cost`` counts it so)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed.sharding import block_work
+    (x,), w, out_pl = _shard_product((x,), w)
+    mesh = w.device_mesh
+    shape = tuple(x.shape[:-1]) + (w.shape[1],)
+    with block_work(mesh, tuple(Shard(0) if p.is_partial() else p
+                                for p in out_pl)):
+        y = x.to_local() @ w.to_local()
+    return _from_local(y, mesh, out_pl, shape)
+
+
 def _pmatmul(xs, w, lseed, ctx):
     """The per-stream products xs @ (W ± θ̃), W's sign seed ``lseed``:
     one pair-kernel launch for a central pair, else one a stream; on a
@@ -198,7 +230,6 @@ def _pmatmul(xs, w, lseed, ctx):
     sharded = is_dtensor(w)
     n_cols = None
     if sharded:
-        from torch.distributed.tensor import DTensor
         xs, w, out_pl = _shard_product(xs, w)
         local_shape, offset = pert.shard_layout(w)
         lseed = pert.shifted_leaf_seed(lseed, offset[0] * w.shape[1]
@@ -218,9 +249,7 @@ def _pmatmul(xs, w, lseed, ctx):
             for x, s in zip(xs, ctx.signs))
     if not sharded:
         return tuple(ys)
-    stride = tuple(torch.empty(shape, device="meta").stride())
-    return tuple(DTensor.from_local(y, mesh, out_pl, run_check=False,
-                                    shape=shape, stride=stride) for y in ys)
+    return tuple(_from_local(y, mesh, out_pl, shape) for y in ys)
 
 
 def pdense(p, xs, ids, probe, *, layer=None):

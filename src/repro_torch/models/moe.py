@@ -27,7 +27,9 @@ None)``): each rank dispatches its groups' tokens to its own block of
 experts (``_expert_dispatch``), runs its local expert banks, and
 combines their outputs into a partial sum over the expert axis
 (``_expert_combine``), reduced once: no rank forms another rank's
-experts' inputs or outputs.
+experts' inputs or outputs.  A bank's FSDP split (its d or f over
+"data") is gathered first (``_gather_bank``), as the reference's program
+gathers it, so each expert's contraction is summed whole on one rank.
 """
 from __future__ import annotations
 
@@ -170,15 +172,17 @@ def moe_apply(p, x, cfg, *, group_size: int = 256,
 
     # expert tensors: experts over "expert", groups over "batch" (the
     # reference's sites)
-    if is_dtensor(p["gate"]):
-        expert_in = _expert_dispatch(dispatch, xg, p["gate"])
+    gate, up, down = p["gate"], p["up"], p["down"]
+    if is_dtensor(gate):
+        gate, up, down = (_gather_bank(b) for b in (gate, up, down))
+        expert_in = _expert_dispatch(dispatch, xg, gate)
     else:
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
-    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["gate"])
+    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, gate)
                .float()).to(x.dtype)
-    h = h * torch.einsum("egcd,edf->egcf", expert_in, p["up"])
+    h = h * torch.einsum("egcd,edf->egcf", expert_in, up)
     h = shard(h, "expert", "batch", None, None)
-    expert_out = torch.einsum("egcf,efd->egcd", h, p["down"])
+    expert_out = torch.einsum("egcf,efd->egcd", h, down)
     if is_dtensor(expert_out):
         y = _expert_combine(combine.to(x.dtype), expert_out)
     else:
@@ -188,6 +192,19 @@ def moe_apply(p, x, cfg, *, group_size: int = 256,
     if "shared" in p:
         y = y + glu_mlp(p["shared"], x)
     return y
+
+
+def _gather_bank(bank):
+    """The DTensor expert bank [E, ...] with its FSDP split (of d or f,
+    never of the experts) gathered, as the reference's program gathers
+    it: each expert's product then sums its whole contraction on one
+    rank, where a split contraction would give partial sums reduced in
+    the bank's dtype."""
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_shard() and p.dim != 0 else p
+                 for p in bank.placements)
+    return bank if want == tuple(bank.placements) else bank.redistribute(
+        bank.device_mesh, want)
 
 
 def _expert_block(bank):

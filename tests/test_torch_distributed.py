@@ -44,7 +44,11 @@ Tolerances:
   ``MOE_EP_RULES``): the sharded init bitwise ``device_put`` of the whole
   init; the fused central step (Δθ = 1e-3, η = 1e-2) from the
   reference's params against the reference's unsharded fused step, step
-  0's C̃ within 1e-6 of the cost, 3 steps within 1e-2 / 2e-2.
+  0's C̃ within 1e-6 of the cost, 3 steps within 1e-2 / 2e-2;
+* llama4-scout's smoke config in bf16 under ``MOE_EP_RULES`` on (2, 2),
+  module by module against the unsharded port: no dense product a
+  pending partial sum, every module within one bf16 ulp, the loss and
+  steps 0-1's C̃ and cost within 2⁻¹¹ of the cost.
 """
 import os
 import subprocess
@@ -119,11 +123,15 @@ SLICE = ("qwen2-72b", "llama4-scout-17b-a16e")
 SLICE_STEPS = 3
 SLICE_CT_REL = 1e-6          # step 0's C̃, of the cost
 SLICE_RUN_ATOL = (1e-2, 2e-2)  # C̃, params over the steps
+# the bf16 module-by-module comparison (the worker's ``bf16_modules``)
+BF16_ARCH = "llama4-scout-17b-a16e"
+BF16_MODULE_ULPS = 1.0       # a module's output: the rounding of one product
+BF16_GATE_REL = 2.0 ** -11   # loss, C̃, cost: the cards' gate, of the cost
 
 
-def _slice_reference_params(arch):
+def _slice_reference_params(arch, dtype="float32"):
     """The reference's smoke params (seed 0), leaves in tree order."""
-    jcfg = jsmoke(arch).replace(fsdp=True)
+    jcfg = jsmoke(arch).replace(fsdp=True, dtype=dtype)
     return [np.asarray(a) for a in jax.tree_util.tree_leaves(
         jt.model_init(jcfg, jax.random.PRNGKey(0)))]
 
@@ -200,6 +208,10 @@ def world4(tmp_path_factory):
         inputs.update({f"{arch}/leaf{i}": a for i, a in enumerate(leaves)})
         inputs[f"{arch}/tokens"] = np.random.default_rng(2).integers(
             0, jsmoke(arch).vocab, (4, 16)).astype(np.int32)
+    # llama4-scout's bf16 init, bf16 leaves as their 16-bit patterns
+    inputs.update({f"{BF16_ARCH}/bf16/leaf{i}": a.view(np.uint16)
+                   if a.dtype.name == "bfloat16" else a for i, a in
+                   enumerate(_slice_reference_params(BF16_ARCH, "bfloat16"))})
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu",
@@ -416,3 +428,41 @@ def test_slice_step_on_the_mesh_tracks_the_references(world4, arch):
         np.testing.assert_allclose(got["params"][i].numpy(),
                                    ref["params"][i], rtol=0,
                                    atol=SLICE_RUN_ATOL[1])
+
+
+def test_bf16_moe_ep_mesh_module_by_module(world4):
+    """llama4-scout's smoke config (``fsdp=True``) in bf16 under
+    ``MOE_EP_RULES`` on the (2, 2) gloo mesh against the unsharded port,
+    from the reference's bf16 init, 2 × 16 tokens, the unsharded run
+    routed as the mesh's (ROADMAP C9).  The rules give "model" to "fsdp"
+    for the dense weights and split the expert banks' d / f over "data",
+    and the reference's program gathers those weights (its dry run on a
+    fake (2, 2) world all-gathers each dense W over all four devices and
+    each bank over "data"); a partial product reduced over the split
+    would round every product twice in bf16.  So no dense product may be
+    a pending ``Partial`` sum, every module's output (each attention
+    projection, the router's logits, the shared expert, the MoE output,
+    each block, the logits) lies within one bf16 ulp of its largest
+    value of the unsharded port's, and the loss at θ₀ and the fused
+    central step's C̃ and cost at steps 0 and 1 (step 1 taken by both
+    from the mesh's θ₁) within 2⁻¹¹ of the cost.  Measured on this CPU:
+    every module bitwise, the loss 4.8e-7 and step 0's C̃ 2.4e-7 apart,
+    step 1 bitwise.  Before the repair the dense products under these
+    rules were partial sums (DTensor's matmul reduced them over both mesh
+    dims) and the banks' contractions were split over "data": modules
+    1-4 ulps apart, step 1's C̃ −0.1134 against 0.0071 (8 gates)."""
+    rec = world4[0]["bf16_modules"]
+    print({k: rec[k] for k in ("modules", "partial", "mesh_loss", "loss",
+                               "steps")})
+    assert rec["partial"] and not any(rec["partial"].values()), \
+        rec["partial"]
+    assert len(rec["modules"]) == 22, sorted(rec["modules"])
+    assert max(rec["modules"].values()) <= BF16_MODULE_ULPS, rec["modules"]
+    assert rec["routing"]["calls"][0] == rec["routing"]["calls"][1] > 0
+    assert abs(rec["mesh_loss"] - rec["loss"]) \
+        <= BF16_GATE_REL * abs(rec["loss"])
+    assert len(rec["steps"]) == 2
+    for st in rec["steps"]:
+        tol = BF16_GATE_REL * abs(st["cost"])
+        assert abs(st["mesh_c_tilde"] - st["c_tilde"]) <= tol, st
+        assert abs(st["mesh_cost"] - st["cost"]) <= tol, st

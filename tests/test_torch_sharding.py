@@ -545,3 +545,115 @@ def test_dryrun_reports_families_outside_the_cut_as_skipped(tmp_path):
             if not ok] == [
         (a, "long_500k") for a in tconfigs.ARCH_IDS
         if a not in tconfigs.LONG_CONTEXT_OK]
+
+
+# --- the reference's own program on a fake (2, 2) world (ROADMAP C9) --------
+
+# the reference's dry-run train cell (``launch/dryrun.py``'s build_cell,
+# jit, lower, compile, ``hlo_collectives.collective_bytes``) on four XLA
+# CPU devices as (2, 2) ("data", "model"), the smoke config with fsdp=True
+# in bf16, batch 4 × 16; prints its bytes by type and how many all-gathers
+# run over all four devices.  ``run_cell`` itself is not called: its
+# out_shardings name three of the step's four metrics, which the installed
+# jax refuses for a train cell
+REF_DRY_CELL = r"""
+import json, sys
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro import configs
+from repro.distributed import sharding as shd
+from repro.launch import dryrun
+from repro.launch.hlo_collectives import collective_bytes
+arch, rules = sys.argv[1], sys.argv[2] or None
+cfg = configs.get_smoke_config(arch).replace(dtype="bfloat16", fsdp=True)
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+with shd.use_mesh(mesh, shd.RULE_SETS[rules] if rules else None):
+    fn, args, sh, _ = dryrun.build_cell(
+        cfg, configs.ShapeSpec("train_4k", 16, 4, "train"), mesh)
+    metrics = dict.fromkeys(("cost", "c_tilde", "updated",
+                             "grad_norm_proxy"), NamedSharding(mesh, P()))
+    text = jax.jit(fn, in_shardings=sh, out_shardings=(sh[0], sh[1], metrics),
+                   donate_argnums=(0, 1)).lower(*args).compile().as_text()
+coll = collective_bytes(text, default_trip=1)
+print(json.dumps(dict(by_type=coll["by_type"], gathers_over_all_four=sum(
+    1 for line in text.splitlines() if " all-gather(" in line
+    and "replica_groups=[1,4]" in line))))
+"""
+
+# the port's dry run of the same cell on a fake world of four
+PORT_DRY_CELL = r"""
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.distributed.world import close_world, fake_world
+from repro_torch.launch import dryrun
+arch, rules = sys.argv[1], sys.argv[2] or None
+dryrun.get_config = lambda a: configs.get_smoke_config(a).replace(
+    dtype="bfloat16", fsdp=True)
+dryrun.SHAPES = dict(configs.SHAPES,
+                     train_4k=configs.ShapeSpec("train_4k", 16, 4, "train"))
+fake_world(4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+rec = dryrun.run_cell(arch, "train_4k", multi_pod=False, mesh=mesh,
+                      out_dir=None, device_type="cpu", verbose=False,
+                      rule_set=rules)
+close_world()
+print(json.dumps(dict(by_type=rec["collective_by_type"])))
+"""
+
+SLICE_RULES = {"llama4-scout-17b-a16e": "moe_ep", "qwen2-72b": ""}
+
+
+@pytest.fixture(scope="module")
+def slice_dry_cells():
+    """Both packages' dry-run cells of the four-card slice's two configs,
+    four processes at once: {(package, arch): bytes by type, ...}."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    procs = {(pkg, arch): subprocess.Popen(
+        [sys.executable, "-c", script, arch, rules], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pkg, script in (("reference", REF_DRY_CELL),
+                            ("port", PORT_DRY_CELL))
+        for arch, rules in SLICE_RULES.items()}
+    out = {}
+    for key, p in procs.items():
+        stdout, err = p.communicate(timeout=600)
+        assert p.returncode == 0, (key, err[-3000:])
+        out[key] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("arch", list(SLICE_RULES))
+def test_slice_dry_run_reduces_what_the_references_program_reduces(
+        slice_dry_cells, arch):
+    """The dry-run train cell of the four-card slice's configs (smoke,
+    fsdp=True, bf16, batch 4 × 16, a (2, 2) ("data", "model") world)
+    in both packages.  The reference's compiled program gathers the
+    weights its rules give to "fsdp" and reduces activations only where
+    a weight is split for tensor parallelism: under ``MOE_EP_RULES``
+    (llama4-scout) "fsdp" is ("data", "model"), and its dense W are
+    all-gathered over all four devices; under the default rules
+    (qwen2-72b) W is gathered over "data" and ``wo``/``down``'s partial
+    sums are all-reduced over "model".  XLA's CPU carries the bf16
+    collectives as f32, so its bytes are ~2× a bf16 wire.  The port's
+    all-reduce bytes lie within 10 % of half the reference's, and it
+    sends no reduce-scatter: measured, llama4-scout 32,800 against
+    68,640 / 2 (the parent, reducing its dense products, 688,160 and a
+    65,536-byte reduce-scatter), qwen2-72b 83,488 against 165,408 / 2."""
+    ref = slice_dry_cells[("reference", arch)]
+    port = slice_dry_cells[("port", arch)]["by_type"]
+    print(arch, "reference", ref, "port", port)
+    if SLICE_RULES[arch] == "moe_ep":
+        assert ref["gathers_over_all_four"] > 0
+    half = ref["by_type"]["all-reduce"] / 2
+    assert abs(port.get("all-reduce", 0.0) - half) <= 0.1 * half, (port,
+                                                                   ref)
+    assert "reduce-scatter" not in port, port

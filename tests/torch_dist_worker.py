@@ -24,9 +24,12 @@ peaks allow, each made by the sharded init, served and trained (fused
 central and forward steps), held against a one-card witness that
 redraws the model a part at a time (``tests/torch_witness.py``), and
 the dry run's qwen2-72b cell run for real against the dry run's
-collective bytes.  It prints the card line, a summary and the checks,
-writes the whole record to ``DIR/cards_full.json`` and exits 1 if a
-check or a rank fails.
+collective bytes.  For each MoE model it also records, at step 1, every
+block's output and layer 0's attention probabilities on the mesh and on
+the witness (routed as the mesh's), and it runs llama4-scout in bf16 at
+the f32 control's depth.  It prints the card line, a summary and the
+checks, writes the whole record to ``DIR/cards_full.json`` and exits 1
+if a check or a rank fails.
 """
 import contextlib
 import dataclasses
@@ -501,6 +504,139 @@ def slice_steps(mesh, inputs):
     return out
 
 
+BF16_ARCH = "llama4-scout-17b-a16e"
+BF16_ROWS = 2      # 2 × 16 tokens: one MoE group, so every rank routes it
+BF16_STEPS = 2
+
+
+def bf16_ulps(got, want):
+    """max |got − want| in bf16 ulps of max |want| (2⁻⁷ of its binade)."""
+    got, want = shd.full(got).float(), shd.full(want).float()
+    top = float(want.abs().max())
+    if top == 0.0:
+        return float((got - want).abs().max())
+    return float((got - want).abs().max()) / 2.0 ** (
+        np.floor(np.log2(top)) - 7)
+
+
+class _Taps:
+    """The outputs of the model's modules while active, in call order:
+    each attention projection and the head (``transformer.dense``), the
+    shared expert's products (``layers.dense``), the router's logits
+    (``moe.dense``), the MoE output, each block's output and the logits,
+    each as (name, whole tensor, a pending ``Partial`` sum or not) — the
+    mesh's gathered, so a run on the mesh and one without line up."""
+
+    PROJ = ("wq", "wk", "wv", "wo")
+
+    def __init__(self, n_layers):
+        self.n_layers = n_layers
+
+    def __enter__(self):
+        from repro_torch.models import layers, moe, transformer as tr
+        self.out, self._saved, count = [], [], {}
+
+        def tap(mod, attr, name):
+            orig = getattr(mod, attr)
+
+            def wrapped(*a, **k):
+                y = orig(*a, **k)
+                i = count[name] = count.get(name, -1) + 1
+                y0 = y[0] if isinstance(y, tuple) else y
+                partial = shd.is_dtensor(y0) and any(
+                    p.is_partial() for p in y0.placements)
+                self.out.append((self._label(name, i), shd.full(y0)
+                                 .detach().clone(), partial))
+                return y
+            self._saved.append((mod, attr, orig))
+            setattr(mod, attr, wrapped)
+
+        tap(tr, "dense", "attn")
+        tap(layers, "dense", "shared")
+        tap(moe, "dense", "router")
+        tap(tr, "moe_apply", "moe")
+        tap(tr, "block_apply", "block")
+        tap(tr, "_logits", "logits")
+        return self
+
+    def _label(self, name, i):
+        if name == "attn":
+            if i >= 4 * self.n_layers:
+                return "head"
+            return f"layer{i // 4}/{self.PROJ[i % 4]}"
+        if name == "shared":
+            return f"layer{i // 3}/shared/{('gate', 'up', 'down')[i % 3]}"
+        return name if name == "logits" else f"layer{i}/{name}"
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in reversed(self._saved):
+            setattr(mod, attr, orig)
+
+
+def bf16_modules(mesh, inputs):
+    """llama4-scout's smoke config (``fsdp=True``) in bf16 under
+    ``MOE_EP_RULES`` on the (2, 2) mesh against the unsharded port, from
+    the reference's bf16 init and the same batch, the unsharded run's
+    routing pinned to the mesh's (``_Routing``): every module's output
+    (``_Taps``) in bf16 ulps at the loss at θ₀, whether each dense
+    product was a pending ``Partial`` sum on the mesh, the loss, and the
+    fused central step's C̃ and cost at steps 0 and 1 (the dry run's
+    Δθ = 1e-3, η = 1e-2), step 1 taken by the unsharded port from the
+    mesh's own θ₁ so that it reads the forward alone."""
+    import repro_torch as rt
+    from repro_torch.core import build_mgd_step, mgd_init
+    from repro_torch.core.utils import tree_unflatten
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import default_mgd_config
+    cfg = slice_cfg(BF16_ARCH).replace(dtype="bfloat16")
+    leaves, treedef = tree_flatten(specs.abstract_params(cfg))
+    params = tree_unflatten(treedef, [
+        torch.from_numpy(inputs[f"{BF16_ARCH}/bf16/leaf{i}"].view(np.int16))
+        .view(torch.bfloat16) if a.dtype == torch.bfloat16 else
+        torch.from_numpy(inputs[f"{BF16_ARCH}/bf16/leaf{i}"])
+        for i, a in enumerate(leaves)])
+    toks = torch.from_numpy(inputs[f"{BF16_ARCH}/tokens"][:BF16_ROWS])
+    batch = {"tokens": toks, "labels": toks}
+    loss_fn = (lambda p, b: rt.model_loss(p, cfg, b))   # noqa: E731
+    rules = shd.RULE_SETS["moe_ep"]
+    with shd.use_mesh(mesh, rules):
+        placed = shd.device_put(params, specs.param_shardings(cfg, mesh))
+        sb = shard_batch(batch, mesh)
+        with _Routing() as mlog, _Taps(cfg.n_layers) as mtap, \
+                torch.no_grad():
+            mesh_loss = float(loss_fn(placed, sb))
+    with _Routing(mlog.ids) as ulog, _Taps(cfg.n_layers) as utap, \
+            torch.no_grad():
+        one_loss = float(loss_fn(params, batch))
+    assert [n for n, _, _ in mtap.out] == [n for n, _, _ in utap.out]
+    routing = _routing_gap(mlog, ulog)
+    modules = {n: bf16_ulps(g, w) for (n, g, _), (_, w, _)
+               in zip(mtap.out, utap.out)}
+    partial = {n: p for n, _, p in mtap.out
+               if n == "head" or n.split("/")[-1] in _Taps.PROJ
+               or "/shared/" in n}
+    mc = dataclasses.replace(default_mgd_config("central"), fused=True)
+    step = build_mgd_step(loss_fn, mc,
+                          probe_fn=rt.make_transformer_probe_fn(cfg))
+    steps = []
+    with shd.use_mesh(mesh, rules):
+        p, state = placed, mgd_init(placed, mc)
+        for n in range(BF16_STEPS):
+            start = tree_map(shd.full, p)
+            with _Routing() as mlog:
+                p, state, m = step(p, state, sb)
+            with shd.use_mesh(None), _Routing(mlog.ids):
+                _, _, um = step(start, mgd_init(start, mc)._replace(step=n),
+                                batch)
+            steps.append(dict(mesh_c_tilde=float(m["c_tilde"]),
+                              c_tilde=float(um["c_tilde"]),
+                              mesh_cost=float(m["cost"]),
+                              cost=float(um["cost"])))
+    return dict(modules=modules, partial=partial, mesh_loss=mesh_loss,
+                loss=one_loss, steps=steps, routing=routing)
+
+
 def mesh4(rank, d):
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.core.probe_parallel import LocalMesh
@@ -524,6 +660,7 @@ def mesh4(rank, d):
     dm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out["sharded_init"] = sharded_inits(dm)
     out["slice_steps"] = slice_steps(dm, inputs)
+    out["bf16_modules"] = bf16_modules(dm, inputs)
     y = pipeline_forward(lambda w, x: torch.tanh(x @ w),
                          torch.from_numpy(inputs["ws"]),
                          torch.from_numpy(inputs["px"]), mesh=pod4,
@@ -899,6 +1036,61 @@ def _routing_gap(mesh_log, one_log):
                     one_log.calls[0][1].median()) if one_log.calls else None)
 
 
+def _attention_probs(q, k):
+    """Causal softmax(q·kᵀ/√d) in f32 of q [B, S, H, d], k [B, S, KVH,
+    d] (each query head reading its group's key head): [B, H, S, S]."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    q = q.float().reshape(b, s, kvh, h // kvh, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k.float()) / dh ** 0.5
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    return torch.softmax(scores.masked_fill(~mask, float("-inf")), -1) \
+        .reshape(b, h, s, s)
+
+
+class _Hidden:
+    """Each block's output and layer 0's attention probabilities while
+    active (``transformer.block_apply`` and the first ``_qkv`` wrapped),
+    whole tensors (gathered on a mesh): the per-layer gap of two routes
+    of one forward."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tr
+        self.blocks, self.probs = [], None
+        self._block, self._qkv = tr.block_apply, tr._qkv
+
+        def block(*a, **k):
+            x, cache = self._block(*a, **k)
+            self.blocks.append(shd.full(x).detach())
+            return x, cache
+
+        def qkv(*a, **k):
+            q, kk, v = self._qkv(*a, **k)
+            if self.probs is None:
+                self.probs = _attention_probs(shd.full(q), shd.full(kk))
+            return q, kk, v
+
+        tr.block_apply, tr._qkv = block, qkv
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tr
+        tr.block_apply, tr._qkv = self._block, self._qkv
+
+
+def _hidden_gap(mesh, one):
+    """The per-layer gap of the hidden state (bf16 ulps of each block
+    output's largest value), the first layer past one ulp (the rounding
+    of one product), and layer 0's attention probabilities' largest
+    gap."""
+    ulps = [bf16_ulps(a, b) for a, b in zip(mesh.blocks, one.blocks)]
+    return dict(layer_ulps=ulps, layers=[len(mesh.blocks), len(one.blocks)],
+                first_layer_past_one_ulp=next(
+                    (i for i, u in enumerate(ulps) if u > 1.0), None),
+                attn_probs_layer0_max_gap=float(
+                    (mesh.probs - one.probs).abs().max()))
+
+
 def _witness_rel(cfg):
     """The witness gate's tolerance in units of the cost: chip_smoke.py's
     LM gate (2⁻¹¹) in bf16, its f32 MoE gate (2⁻¹⁶) in f32."""
@@ -925,6 +1117,7 @@ def _witness_gate(cfg, mc, batch, mesh_rec, updates, dev):
     import torch_witness as tw
     rel = _witness_rel(cfg)
     routes = mesh_rec.pop("routes", None)
+    hidden = mesh_rec.pop("hidden", None)
     t0 = time.perf_counter()
     with torch.no_grad(), _pinned(routes, 0) as log:
         loss = float(tw.stream_cost(cfg, FULL_SEED, batch, device=dev))
@@ -933,6 +1126,16 @@ def _witness_gate(cfg, mc, batch, mesh_rec, updates, dev):
                / (rel * abs(loss)), steps=[])
     if routes:
         out["routing"] = _routing_gap(routes[0], log)
+    if hidden:
+        # the forward at θ after CONTROL_STEP updates, routed as the
+        # mesh's: each block's output and layer 0's attention
+        mesh_hidden, route = hidden
+        with torch.no_grad(), _Routing(route.ids), _Hidden() as one:
+            tw.stream_cost(cfg, FULL_SEED, batch, device=dev,
+                           updates=updates[:CONTROL_STEP])
+        out["hidden"] = dict(_hidden_gap(mesh_hidden, one),
+                             step=CONTROL_STEP)
+        del one
     for n in range(GATED_STEPS):
         with _pinned(routes, n + 1) as log:
             ct, cost = _probe_ct(
@@ -1154,12 +1357,19 @@ def _run_model(arch, rules, n_layers, mesh, dev, *, witness=True,
 
         kernels.reset_launch_counts()
         coll = CollectiveBytes()
+        hidden = None
         for n in range(steps[0]):
             if witness and n < GATED_STEPS:
                 # the control: another seed's C̃ from the same params
                 take_counts()
                 rec["c_tilde_other_seed"].append(_probe_ct(
                     probe_fn, params, sb, n, mc.seed + 1, mc)[0])
+                if cfg.n_experts and n == CONTROL_STEP:
+                    # an MoE model's hidden states here, for the witness
+                    with torch.no_grad(), _Routing() as route, \
+                            _Hidden() as mesh_hidden:
+                        loss_fn(params, sb)
+                    hidden = (mesh_hidden, route)
                 kernels.reset_launch_counts()
             _sync(dev)
             t0 = time.perf_counter()
@@ -1179,8 +1389,9 @@ def _run_model(arch, rules, n_layers, mesh, dev, *, witness=True,
                 t0 = time.perf_counter()
                 if torch.distributed.get_rank() == 0:
                     rec["witness"] = _witness_gate(
-                        cfg, mc, batch, dict(rec, routes=routes), updates,
-                        dev)
+                        cfg, mc, batch, dict(rec, routes=routes,
+                                             hidden=hidden), updates, dev)
+                hidden = None
                 torch.distributed.barrier()
                 rec["witness_s"] = time.perf_counter() - t0
             kernels.reset_launch_counts()
@@ -1309,6 +1520,11 @@ def cards_full4(rank, d):
     rec["llama_f32"] = _run_model(
         LLAMA, "moe_ep", LLAMA_PROBE_LAYERS[-1], mesh, dev, dtype="float32",
         rel=MOE_DECODE_REL, steps=(GATED_STEPS, 0))
+    # and in bf16 at that depth: the witness at 2⁻¹¹ without 30 layers'
+    # amplification (ROADMAP C9)
+    rec["llama_bf16_4"] = _run_model(
+        LLAMA, "moe_ep", LLAMA_PROBE_LAYERS[-1], mesh, dev, serve=False,
+        steps=(GATED_STEPS, 0))
     rec["seconds"] = time.perf_counter() - t0
     every = [None] * torch.distributed.get_world_size()
     torch.distributed.all_gather_object(every, rec)
@@ -1384,7 +1600,7 @@ def _full_checks(ranks, dry):
             r[m]["init_peak_gb"] <= r[m]["shards_gb"] + r[m]["draw_gb"]
             + INIT_SLACK_GB for m in ("qwen", "llama"))),
         finite=every(lambda r: all(r[m]["finite"] for m in (
-            "qwen", "llama", "llama_f32"))),
+            "qwen", "llama", "llama_f32", "llama_bf16_4"))),
         qwen_kernels=every(lambda r: launches(
             r, "qwen", "launches_central", "perturbed_matmul_pair")
             and launches(r, "qwen", "launches_central", "mgd_update_window")
@@ -1394,8 +1610,11 @@ def _full_checks(ranks, dry):
         qwen_witness=_witness_held(ranks[0]["qwen"]["witness"]),
         llama_witness=_witness_held(ranks[0]["llama"]["witness"]),
         llama_f32_witness=_witness_held(ranks[0]["llama_f32"]["witness"]),
+        llama_bf16_4_witness=_witness_held(
+            ranks[0]["llama_bf16_4"]["witness"]),
         updates_bitwise=every(lambda r: all(
-            r[m]["update_bitwise"] for m in ("qwen", "llama", "llama_f32"))),
+            r[m]["update_bitwise"] for m in ("qwen", "llama", "llama_f32",
+                                             "llama_bf16_4"))),
         qwen_decode=every(lambda r: _decode_held(r["qwen"]["serve"])),
         llama_decode=every(lambda r: _decode_held(r["llama"]["serve"])),
         llama_f32_decode=every(lambda r: _decode_held(
@@ -1442,6 +1661,12 @@ def _summary(ranks, dry):
                                  for r in ranks],
             decode_bound_ms=[r[model]["serve"]["decode_bound_ms"]
                              for r in ranks])
+    m = ranks[0]["llama_bf16_4"]
+    out["llama_bf16_4"] = dict(
+        layers=m["layers"], dtype=m["dtype"], cost=m["cost"],
+        c_tilde=m["c_tilde"], central_step_s=m["step_s"],
+        central_collectives=per("llama_bf16_4", "central_collectives"),
+        witness=m["witness"])
     out["llama_depth"] = ranks[0]["llama_depth"]
     out["dry"] = dict(
         measured=[r["dry"] for r in ranks],
