@@ -34,6 +34,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops as kops
 from . import perturbations as pert
 from .probe_parallel import pod_seed
@@ -344,16 +345,17 @@ def build_mgd_step(
     def apply_update(params, state, g_step):
         """θ ← θ − η·G (Eq. 4) with optional momentum, landed through the
         plant."""
-        m = state.m
-        if cfg.momentum:
-            m = tree_axpy(1.0, g_step, tree_scale(state.m, cfg.momentum))
-            direction = m
-        else:
-            direction = g_step
-        new_params = plant.write_params(
-            tree_axpy(NEG_ETA, direction, params), step=state.step,
-            prev=params)
-        return new_params, m
+        with tracing.span("mgd.update"):
+            m = state.m
+            if cfg.momentum:
+                m = tree_axpy(1.0, g_step, tree_scale(state.m, cfg.momentum))
+                direction = m
+            else:
+                direction = g_step
+            new_params = plant.write_params(
+                tree_axpy(NEG_ETA, direction, params), step=state.step,
+                prev=params)
+            return new_params, m
 
     # ----- fused probe + update paths (cfg.fused) --------------------------
 
@@ -412,7 +414,8 @@ def build_mgd_step(
 
     def step_fn_fused(params, state: MGDState, batch):
         n = state.step
-        c_tilde, c0, cost_metric = probe_once_fused(params, state, batch)
+        with tracing.span("mgd.probe"):
+            c_tilde, c0, cost_metric = probe_once_fused(params, state, batch)
         do_update = (n + 1) % cfg.tau_theta == 0
         metrics = {"cost": cost_metric, "c_tilde": c_tilde,
                    "updated": updated_flag(do_update, c_tilde.device)}
@@ -420,15 +423,18 @@ def build_mgd_step(
             replay_c = record(state.replay_c, n, c_tilde)
             new_params = params
             if do_update:
-                new_params = plant.write_params(
-                    fused_replay_update(params, state, replay_c),
-                    step=n, prev=params)
+                with tracing.span("mgd.update"):
+                    new_params = plant.write_params(
+                        fused_replay_update(params, state, replay_c),
+                        step=n, prev=params)
             new_state = state._replace(step=n + 1, c0=c0, replay_c=replay_c,
                                        metric_cost=cost_metric)
             return new_params, new_state, metrics
         # tau_theta == 1 (enforced by MGDConfig): update every step
-        new_params = plant.write_params(
-            fused_update_tau1(cfg, params, n, c_tilde), step=n, prev=params)
+        with tracing.span("mgd.update"):
+            new_params = plant.write_params(
+                fused_update_tau1(cfg, params, n, c_tilde), step=n,
+                prev=params)
         new_state = MGDState(step=n + 1, c0=c0, g=None, replay_c=None, m=None,
                              metric_cost=cost_metric)
         return new_params, new_state, metrics
@@ -444,8 +450,14 @@ def build_mgd_step(
             p = tree_axpy(REPLAY_SCALE * replay_c[s % window], theta_j, p)
         return p
 
+    def traced(step_fn):
+        def step(params, state: MGDState, batch):
+            with tracing.span("mgd.step", step=state.step):
+                return step_fn(params, state, batch)
+        return step
+
     if cfg.fused:
-        return step_fn_fused
+        return traced(step_fn_fused)
 
     # τ_θ = 1 rademacher updates take the sign-last form θ + sgn·t with
     # t = (−η)·(Δθ·s): sgn·t is exact, so the value equals the written
@@ -458,20 +470,25 @@ def build_mgd_step(
         n = state.step
         if sign_exact_update and all(leaf.dtype == torch.float32
                                      for leaf in tree_leaves(params)):
-            c_tilde, _, c0, cost_metric = probe_once(params, state, batch, 0)
-            s = c_tilde * INV_D2
-            t = NEG_ETA * (DTHETA * s)
-            signs = pert.generate_signs_only(
-                params, step=n, seed=_probe_seed(cfg, 0), tau_p=cfg.tau_p)
-            new_params = plant.write_params(
-                tree_map(lambda p, g_: p + g_ * t, params, signs),
-                step=n, prev=params)
+            with tracing.span("mgd.probe"):
+                c_tilde, _, c0, cost_metric = probe_once(params, state,
+                                                         batch, 0)
+            with tracing.span("mgd.update"):
+                s = c_tilde * INV_D2
+                t = NEG_ETA * (DTHETA * s)
+                signs = pert.generate_signs_only(
+                    params, step=n, seed=_probe_seed(cfg, 0),
+                    tau_p=cfg.tau_p)
+                new_params = plant.write_params(
+                    tree_map(lambda p, g_: p + g_ * t, params, signs),
+                    step=n, prev=params)
             new_state = MGDState(step=n + 1, c0=c0, g=None, replay_c=None,
                                  m=None, metric_cost=cost_metric)
             metrics = {"cost": cost_metric, "c_tilde": c_tilde,
                        "updated": updated_flag(True, c_tilde.device)}
             return new_params, new_state, metrics
-        e, c_tilde, c0, cost_metric = accumulate(params, state, batch)
+        with tracing.span("mgd.probe"):
+            e, c_tilde, c0, cost_metric = accumulate(params, state, batch)
         do_update = (n + 1) % cfg.tau_theta == 0
         metrics = {"cost": cost_metric, "c_tilde": c_tilde,
                    "updated": updated_flag(do_update, c_tilde.device)}
@@ -480,9 +497,10 @@ def build_mgd_step(
             replay_c = record(state.replay_c, n, c_tilde)
             new_params = params
             if do_update:
-                new_params = plant.write_params(
-                    replay_update(params, state, replay_c),
-                    step=n, prev=params)
+                with tracing.span("mgd.update"):
+                    new_params = plant.write_params(
+                        replay_update(params, state, replay_c),
+                        step=n, prev=params)
             new_state = state._replace(step=n + 1, c0=c0, replay_c=replay_c,
                                        metric_cost=cost_metric)
             return new_params, new_state, metrics
@@ -502,7 +520,7 @@ def build_mgd_step(
                              metric_cost=cost_metric)
         return new_params, new_state, metrics
 
-    return step_fn
+    return traced(step_fn)
 
 
 def make_mgd_epoch(loss_fn, cfg: MGDConfig, steps_per_call: int,

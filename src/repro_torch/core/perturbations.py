@@ -85,9 +85,14 @@ def leaf_seed(seed, pert_step, leaf_id):
 
 
 def rademacher_signs(lseed, idx: torch.Tensor) -> torch.Tensor:
-    """±1 float32 signs from a leaf seed and uint32 intra-leaf indices."""
+    """±1 float32 signs from a leaf seed and uint32 intra-leaf indices;
+    ``rademacher_signs.signs_hashed`` counts the indices hashed."""
+    rademacher_signs.signs_hashed += idx.numel()
     h = _fmix32((_mul32(_u32(idx), _GOLDEN) + _u32(lseed)) & MASK)
     return 1.0 - 2.0 * (h >> 31).to(torch.float32)
+
+
+rademacher_signs.signs_hashed = 0
 
 
 def _walsh_signs(pert_step: int, idx: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch import tracing
+
 
 def f32(x) -> torch.Tensor:
     """A 0-dim float32 CPU tensor holding ``x`` rounded to f32.
@@ -199,7 +201,8 @@ def epoch_loop(step_fn, steps_per_call: int, sample_fn, sample_index):
     def run(params, state):
         metrics = []
         for _ in range(steps_per_call):
-            batch = sample_fn(sample_index(state))
+            with tracing.span("mgd.data"):
+                batch = sample_fn(sample_index(state))
             params, state, m = step_fn(params, state, batch)
             metrics.append(m)
         stacked = ({k: torch.stack([m[k] for m in metrics])

@@ -17,6 +17,8 @@ import pathlib
 import shutil
 import subprocess
 
+from repro_torch import tracing
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 # perturbed_matmul_tc finds cuTensorMapEncodeTiled through
@@ -63,10 +65,18 @@ def build_all(names=SOURCES) -> dict:
     """Compile every library in ``names`` that is not built yet, in
     parallel; return ``{name: ptxas report}`` for all of them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    missing = [name for name in names if not lib_path(name).is_file()]
+    if missing:
+        with tracing.span("kernels.build", libs=missing):
+            _compile(missing)
+    return {name: report_path(name).read_text()
+            if report_path(name).is_file() else "" for name in names}
+
+
+def _compile(names) -> None:
+    """nvcc on every library in ``names`` at once; raises if any fails."""
     pending = {}
     for name in names:
-        if lib_path(name).is_file():
-            continue
         out = lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -91,8 +101,6 @@ def build_all(names=SOURCES) -> dict:
         os.replace(tmp, out)    # atomic: concurrent builders never see half
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return {name: report_path(name).read_text()
-            if report_path(name).is_file() else "" for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -101,6 +109,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if not lib_path(name).is_file():
             build_all()
-        lib = ctypes.CDLL(str(lib_path(name)))
+        with tracing.span("kernels.load", lib=name):
+            lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib

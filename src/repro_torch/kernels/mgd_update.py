@@ -9,7 +9,8 @@ contiguous leaf, whatever its storage offset, and index the signs of its
 element (r, c) at r·n_cols + c (``n_cols`` defaults to the leaf's N); ``kernels.ops`` views leaves as matrices and
 routes CPU tensors to the plain versions.  The window update's launches
 are counted on ``mgd_update_window_group.launches``, the sum's on
-``mgd_update.launches``.
+``mgd_update.launches``; the signs they hash, each element's J signs, on
+their ``.signs_hashed``.
 """
 from __future__ import annotations
 
@@ -82,7 +83,8 @@ def _launch(kind, ws, lseeds, coefs, a, b, wrapper, n_cols, outs=None):
     """Updated ``ws`` (written into ``outs``, else into new tensors): one
     launch for each run of up to MAX_LEAVES whole leaves of one dtype, or
     of up to MAX_STRIDED blocks of wider leaves (``n_cols`` > N: the
-    strided kernels), each counted on ``wrapper.launches``."""
+    strided kernels), each counted on ``wrapper.launches`` and its
+    numel × J signs on ``wrapper.signs_hashed``."""
     outs = list(outs) if outs is not None else [torch.empty_like(w)
                                                 for w in ws]
     groups = {}
@@ -113,6 +115,8 @@ def _launch(kind, ws, lseeds, coefs, a, b, wrapper, n_cols, outs=None):
                 msg = lib.mgd_update_error_string(err).decode()
                 raise RuntimeError(f"{wrapper.__name__} launch failed: {msg}")
             wrapper.launches += 1
+            wrapper.signs_hashed += coefs.shape[0] * sum(ws[i].numel()
+                                                         for i in part)
     return outs
 
 
@@ -132,6 +136,7 @@ def mgd_update_window_group(ws, lseeds, coefs, *, alpha: float,
 
 
 mgd_update_window_group.launches = 0
+mgd_update_window_group.signs_hashed = 0
 
 
 def mgd_update(w, lseeds, coefs, *, scale: float, n_cols=None):
@@ -148,3 +153,4 @@ def mgd_update(w, lseeds, coefs, *, scale: float, n_cols=None):
 
 
 mgd_update.launches = 0
+mgd_update.signs_hashed = 0

@@ -14,7 +14,8 @@ alone, never on a failure: ``"tc"`` (``csrc/perturbed_matmul_tc.cu``, bf16
 bf16 x and W with K and N multiples of 8; ``"simt"``
 (``csrc/perturbed_matmul.cu``, f32 FFMA) for everything else.  Either
 kernel's build or launch failure raises.  Each wrapper counts its launches
-in ``.launches`` and, per route, in ``.launches_tc`` / ``.launches_simt``.
+in ``.launches`` and, per route, in ``.launches_tc`` / ``.launches_simt``,
+and the signs its launches hash in ``.signs_hashed`` (``signs_hashed``).
 """
 from __future__ import annotations
 
@@ -94,6 +95,30 @@ def tc_cluster(n_streams: int, m: int) -> int:
     return 4 if blocks % 4 == 0 else 2 if blocks >= 2 else 1
 
 
+TC_BK, TC_BN = 64, 128      # the tensor-core kernel's stage depth, CTA width
+SIMT_BM = 64                # the SIMT kernel's rows a block
+
+
+def signs_hashed(which: str, n_streams: int, m: int, k: int, n: int,
+                 cluster=None) -> int:
+    """Signs one launch of x [M, K] @ W [K, N] hashes on route ``which``.
+
+    ``"tc"``: each cluster of ``cluster`` CTAs along M (None: ``tc_cluster``)
+    hashes every stage's whole 64 × 128 sign tile once, past K and N too,
+    and the clusters along M each hash the whole of W's tiles:
+    ⌈K/64⌉·64 × ⌈N/128⌉·128 × ⌈row blocks / cluster⌉, a row block 128 rows
+    of one stream or 64 of each of the pair's.  ``"simt"``: each 64-row
+    block of M hashes the sign of every element of W it stages, once for
+    both of the pair's streams and none past K or N: K × N × ⌈M/64⌉."""
+    if m == 0 or n == 0:
+        return 0
+    if which == "simt":
+        return k * n * -(-m // SIMT_BM)
+    cm = cluster or tc_cluster(n_streams, m)
+    blocks = -(-m // (64 if n_streams == 2 else 128))
+    return (-(-k // TC_BK) * TC_BK) * (-(-n // TC_BN) * TC_BN) * -(-blocks // cm)
+
+
 def check_n_cols(n_cols, n: int) -> int:
     """The signs' row stride: ``n`` for None, else ``n_cols`` ≥ ``n``
     (a column block of a leaf of ``n_cols`` columns)."""
@@ -108,7 +133,8 @@ def check_n_cols(n_cols, n: int) -> int:
 
 def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster, n_cols=None):
     """Launch ``kernel`` (None: the one ``route`` picks); returns (outputs,
-    the route taken, or None when there was nothing to compute)."""
+    the route taken, or None when there was nothing to compute, the signs
+    the launch hashed)."""
     if kernel not in (None, *ROUTES):
         raise ValueError(f"unknown kernel {kernel!r}; use one of {ROUTES}")
     if cluster is not None and cluster not in TC_CLUSTERS:
@@ -128,7 +154,7 @@ def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster, n_cols=None):
         raise TypeError(f"out_dtype {out_dtype} is not float32 or bfloat16")
     ys = [torch.empty((m, n), dtype=out_dtype, device=w.device) for _ in xs]
     if m == 0 or n == 0:
-        return ys, None
+        return ys, None, 0
     pair = len(xs) == 2
     which = route(xs[0], w)
     if kernel == "tc" and which != "tc":
@@ -148,7 +174,8 @@ def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster, n_cols=None):
                 raise ValueError(f"{name} is not 16-byte aligned, which the "
                                  f"tensor-core kernel's TMA loads need")
         lib, fn = _fn("perturbed_matmul_tc", "pmtc", _TC_ARGTYPES)
-        err = fn(len(xs), cluster or tc_cluster(len(xs), m),
+        cluster = cluster or tc_cluster(len(xs), m)
+        err = fn(len(xs), cluster,
                  xs[0].data_ptr(), x1, w.data_ptr(),
                  ys[0].data_ptr(), y1, m, k, n, n_cols, _DTYPE_CODE[out_dtype],
                  seed,
@@ -164,14 +191,15 @@ def _launch(xs, w, lseed, amps, out_dtype, kernel, cluster, n_cols=None):
     if err:
         raise RuntimeError(f"perturbed_matmul ({which}) launch failed: "
                            f"{error_string(err).decode()}")
-    return ys, which
+    return ys, which, signs_hashed(which, len(xs), m, k, n, cluster)
 
 
-def _count(wrapper, which):
+def _count(wrapper, which, hashed):
     if which is not None:
         wrapper.launches += 1
         setattr(wrapper, f"launches_{which}",
                 getattr(wrapper, f"launches_{which}") + 1)
+        wrapper.signs_hashed += hashed
 
 
 def perturbed_matmul(x, w, lseed: int, *, amp: float, out_dtype=None,
@@ -180,9 +208,9 @@ def perturbed_matmul(x, w, lseed: int, *, amp: float, out_dtype=None,
     with row stride ``n_cols`` (None: N).  ``kernel`` (``"tc"``/``"simt"``)
     overrides ``route`` and ``cluster`` (1, 2, 4) the tensor-core kernel's
     cluster size, for comparisons."""
-    ys, which = _launch((x,), w, lseed, (float(amp),), out_dtype, kernel,
-                        cluster, n_cols)
-    _count(perturbed_matmul, which)
+    ys, which, hashed = _launch((x,), w, lseed, (float(amp),), out_dtype,
+                                kernel, cluster, n_cols)
+    _count(perturbed_matmul, which, hashed)
     return ys[0]
 
 
@@ -190,14 +218,14 @@ def perturbed_matmul_pair(xp, xm, w, lseed: int, *, dtheta: float,
                           out_dtype=None, kernel=None, cluster=None,
                           n_cols=None):
     """(xp @ (W + Δθ·S), xm @ (W − Δθ·S)) in one pass over W."""
-    ys, which = _launch((xp, xm), w, lseed,
-                        (float(dtheta), -float(dtheta)), out_dtype, kernel,
-                        cluster, n_cols)
-    _count(perturbed_matmul_pair, which)
+    ys, which, hashed = _launch((xp, xm), w, lseed,
+                                (float(dtheta), -float(dtheta)), out_dtype,
+                                kernel, cluster, n_cols)
+    _count(perturbed_matmul_pair, which, hashed)
     return ys[0], ys[1]
 
 
-perturbed_matmul.launches = 0
+perturbed_matmul.launches = perturbed_matmul.signs_hashed = 0
 perturbed_matmul.launches_tc = perturbed_matmul.launches_simt = 0
-perturbed_matmul_pair.launches = 0
+perturbed_matmul_pair.launches = perturbed_matmul_pair.signs_hashed = 0
 perturbed_matmul_pair.launches_tc = perturbed_matmul_pair.launches_simt = 0

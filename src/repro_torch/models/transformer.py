@@ -62,6 +62,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import perturbations as pert
 from repro_torch.core.perturbations import leaf_seed
 from repro_torch.core.utils import (is_dtensor, leaf_id_tree, tree_flatten,
@@ -166,8 +167,9 @@ def _attend(cfg, q, k, v):
             impl=cfg.attn_impl)
 
     # under a mesh each (batch, head) shard attends on its own rank
-    y = per_shard(attend, q, k, v)
-    return y.reshape(b, s, -1)
+    with tracing.span("attn.core"):
+        y = per_shard(attend, q, k, v)
+        return y.reshape(b, s, -1)
 
 
 def _shard_heads(cfg, *xs):
@@ -551,18 +553,19 @@ def _model_forward(params, cfg: ArchConfig, batch, return_state, state):
 
 
 def _loss_from_logits(logits, labels):
-    if is_dtensor(logits):
-        nll = vocab_parallel_nll(logits, labels)
-        labels = labels.long()
-    else:
-        logits = logits.float()
-        labels = labels.long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels.clamp(min=0)[..., None])[..., 0]
-        nll = logz - gold
-    mask = (labels >= 0).float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    with tracing.span("lm.loss"):
+        if is_dtensor(logits):
+            nll = vocab_parallel_nll(logits, labels)
+            labels = labels.long()
+        else:
+            logits = logits.float()
+            labels = labels.long()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels.clamp(min=0)[..., None])[..., 0]
+            nll = logz - gold
+        mask = (labels >= 0).float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def model_loss(params, cfg: ArchConfig, batch):
